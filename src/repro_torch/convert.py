@@ -1,0 +1,57 @@
+"""Carry the JAX reference's state across, as numpy arrays.
+
+The JAX package's ``LayeredGraph`` and ``AttributeTable`` are turned into
+numpy by the caller (``np.asarray`` on each field); these functions build
+the port's counterparts from that numpy alone, so this module never needs
+JAX.  The parity tests use it to search the reference's own graph.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import LayeredGraph
+from repro_torch.core.predicates import AttributeTable
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def _i32(a, dev) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.int32)).to(dev)
+
+
+def graph_from_arrays(neighbors: Sequence[np.ndarray],
+                      pos: Sequence[np.ndarray],
+                      node_ids: Sequence[np.ndarray],
+                      entry_point, levels: np.ndarray,
+                      device: DeviceLike = "cuda") -> LayeredGraph:
+    """The port's graph from a reference graph's fields given as numpy."""
+    dev = resolve_device(device)
+    return LayeredGraph(
+        neighbors=tuple(_i32(a, dev) for a in neighbors),
+        pos=tuple(_i32(a, dev) for a in pos),
+        node_ids=tuple(_i32(a, dev) for a in node_ids),
+        entry_point=_i32(entry_point, dev).reshape(()),
+        levels=_i32(levels, dev))
+
+
+def table_from_arrays(int_cols: Mapping[str, np.ndarray],
+                      bitset_cols: Optional[Mapping[str, np.ndarray]] = None,
+                      str_cols: Optional[Mapping[str, Sequence[str]]] = None,
+                      n_keywords: Optional[Mapping[str, int]] = None,
+                      device: DeviceLike = "cuda") -> AttributeTable:
+    """The port's ``AttributeTable`` from numpy columns.
+
+    Bitset columns are (n, W) uint32 words; the port stores their bits as
+    int32 (bitwise AND and ``!= 0`` tests read the same bits)."""
+    dev = resolve_device(device)
+    bits = {k: torch.from_numpy(
+                np.array(v, dtype=np.uint32).view(np.int32)).to(dev)
+            for k, v in (bitset_cols or {}).items()}
+    return AttributeTable(
+        int_cols={k: _i32(v, dev) for k, v in int_cols.items()},
+        bitset_cols=bits,
+        str_cols={k: np.asarray(v, dtype=object)
+                  for k, v in (str_cols or {}).items()},
+        n_keywords=dict(n_keywords or {}))

@@ -1,0 +1,42 @@
+"""ACORN core: predicate-agnostic hybrid search over vectors + structured
+data, in PyTorch."""
+from .predicates import (AttributeTable, Predicate, Equals, OneOf, Between,
+                         ContainsAny, RegexMatch, And, Or, Not, TruePredicate,
+                         SelectivitySketch, pack_multihot, keywords_to_bitset)
+from .plan import (ExecutionSpec, PredicateProgram, SearchRequest,
+                   SearchResult, TableSchema, PackedColumns, admission_key,
+                   compile_predicates, evaluate_program,
+                   pack_columns, regex_aux, resolve_execution_spec,
+                   sentinel_result)
+from .graph import (LayeredGraph, assign_levels, average_out_degree,
+                    level_constant, memory_bytes, neighbor_rows)
+from .bruteforce import masked_topk, ground_truth, recall_at_k, pairwise_sq_l2
+from .build import (acorn_compress, build_acorn_1, build_acorn_gamma,
+                    build_bulk, knn_among, reverse_slack, with_reverse_slack)
+from .search import (SearchStats, ann_search, dedup_mask, first_m_true,
+                     get_neighbors, hybrid_search)
+from .batched import (DEFAULT_BUCKETS, VariantCache, bucket_for,
+                      coalesce_take, mesh_buckets, pad_rows, plan_chunks,
+                      search_batch)
+from .baselines import prefilter_search
+from .index import AcornConfig, HybridIndex
+
+__all__ = [
+    "AttributeTable", "Predicate", "Equals", "OneOf", "Between",
+    "ContainsAny", "RegexMatch", "And", "Or", "Not", "TruePredicate",
+    "SelectivitySketch", "pack_multihot", "keywords_to_bitset",
+    "ExecutionSpec", "PredicateProgram", "SearchRequest", "SearchResult",
+    "TableSchema", "PackedColumns", "admission_key", "compile_predicates",
+    "evaluate_program", "pack_columns", "regex_aux",
+    "resolve_execution_spec", "sentinel_result",
+    "LayeredGraph", "assign_levels", "average_out_degree", "level_constant",
+    "memory_bytes", "neighbor_rows",
+    "masked_topk", "ground_truth", "recall_at_k", "pairwise_sq_l2",
+    "acorn_compress", "build_acorn_1", "build_acorn_gamma", "build_bulk",
+    "knn_among", "reverse_slack", "with_reverse_slack",
+    "SearchStats", "ann_search", "dedup_mask", "first_m_true",
+    "get_neighbors", "hybrid_search",
+    "DEFAULT_BUCKETS", "VariantCache", "bucket_for", "coalesce_take",
+    "mesh_buckets", "pad_rows", "plan_chunks", "search_batch",
+    "prefilter_search", "AcornConfig", "HybridIndex",
+]

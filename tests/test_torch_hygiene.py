@@ -1,0 +1,102 @@
+"""Structural rules of the PyTorch port.
+
+* No file under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
+  ``jax`` or the JAX package ``repro`` (the port runs where JAX is absent).
+* Every ``.cu`` under ``src/repro_torch/csrc/`` is built by the loader,
+  and every source the loader names exists.
+* Entry points given the default device (``cuda``) raise on a machine
+  without CUDA instead of running on the CPU; CPU tensors take the plain
+  versions, and the CUDA launchers refuse CPU tensors before any build.
+"""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.convert import graph_from_arrays, table_from_arrays
+from repro_torch.core import (AcornConfig, HybridIndex, sentinel_result)
+from repro_torch.data import make_lcps_dataset
+from repro_torch.kernels import loader
+from repro_torch.kernels.gather_distance import gather_distance_cuda
+from repro_torch.kernels.neighbor_expand import neighbor_expand_cuda
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = {"jax", "jaxlib", "repro"} & set(_imported_roots(path))
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_every_cuda_source_is_built_by_the_loader():
+    on_disk = sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
+    assert on_disk == sorted(loader.SOURCES)
+    assert loader.CSRC_DIR == PORT / "csrc"
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+
+
+ENTRY_POINTS = {
+    "resolve_device": lambda: repro_torch.resolve_device(),
+    "make_lcps_dataset": lambda: make_lcps_dataset(n=64, d=4),
+    "graph_from_arrays": lambda: graph_from_arrays(
+        [np.full((2, 2), -1)], [np.arange(2)], [np.arange(2)], 0,
+        np.zeros(2)),
+    "table_from_arrays": lambda: table_from_arrays({"label": np.zeros(4)}),
+    "sentinel_result": lambda: sentinel_result(2, 3),
+    "HybridIndex.build": lambda: HybridIndex.build(
+        torch.zeros((8, 4)), table_from_arrays({"label": np.zeros(8)},
+                                               device="cpu"),
+        AcornConfig(M=4, gamma=2)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_default_device_raises_without_cuda(name):
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ENTRY_POINTS[name]()
+
+
+def test_cpu_device_runs_the_plain_path():
+    ds = make_lcps_dataset(n=300, d=8, card=4, device="cpu")
+    index = HybridIndex.build(ds.x, ds.table, AcornConfig(M=4, gamma=4),
+                              device="cpu")
+    before = (gather_distance_cuda.launches, neighbor_expand_cuda.launches)
+    from repro_torch.core import Equals, SearchRequest
+    res = index.search(SearchRequest(xq=ds.x[:5], predicates=[
+        Equals("label", i % 4) for i in range(5)], k=3, route="graph"))
+    assert res.ids.device.type == "cpu" and res.ids.shape == (5, 3)
+    assert (gather_distance_cuda.launches,
+            neighbor_expand_cuda.launches) == before
+
+
+def test_cuda_launchers_refuse_cpu_tensors():
+    ids = torch.zeros((2, 3), dtype=torch.int32)
+    x = torch.zeros((4, 8))
+    with pytest.raises(ValueError, match="cuda"):
+        gather_distance_cuda(ids, torch.zeros((2, 8)), x)
+    with pytest.raises(ValueError, match="cuda"):
+        neighbor_expand_cuda(ids, torch.zeros((4, 3), dtype=torch.int32),
+                             torch.arange(4, dtype=torch.int32),
+                             strategy="filter", m=2)

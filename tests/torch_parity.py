@@ -1,0 +1,80 @@
+"""Shared helpers of the PyTorch port's parity tests (``test_torch_*.py``).
+
+The reference's state crosses over as numpy (``repro_torch.convert``), the
+tests compare on the CPU, and a test that needs the card asks for the
+``cuda_device`` fixture, which skips when no GPU is present (decided at
+run time, never at import time).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.convert import graph_from_arrays, table_from_arrays
+
+# relative width of a near tie in distance: two ids whose distances to the
+# query agree this closely may swap places between the packages (their
+# fp32 sums run in different orders)
+NEAR_TIE_REL = 1e-5
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    return torch.device("cuda")
+
+
+def port_graph(g, device="cpu"):
+    """The port's graph from a reference ``LayeredGraph``."""
+    return graph_from_arrays(
+        [np.asarray(a) for a in g.neighbors], [np.asarray(a) for a in g.pos],
+        [np.asarray(a) for a in g.node_ids], np.asarray(g.entry_point),
+        np.asarray(g.levels), device=device)
+
+
+def port_table(t, device="cpu"):
+    """The port's table from a reference ``AttributeTable``."""
+    return table_from_arrays(
+        {k: np.asarray(v) for k, v in t.int_cols.items()},
+        {k: np.asarray(v) for k, v in t.bitset_cols.items()},
+        dict(t.str_cols), dict(t.n_keywords), device=device)
+
+
+def assert_ids_match(ids_port, ids_ref, d_port, d_ref, x, xq, metric="l2",
+                     expanded=False):
+    """Ids identical to the reference's, except where a differing slot is a
+    near tie (the two ids' float64 distances to the query agree within
+    ``NEAR_TIE_REL``); distances within rtol 1e-5 where ids agree.
+
+    ``expanded=True`` marks distances of the exact route's expanded form
+    ``|q|^2 + |x|^2 - 2 q.x``: its fp32 terms are as large as
+    ``|q|^2 + |x|^2`` and cancel, so the absolute tolerance is 1e-6 of
+    that scale per query.  Returns the near ties found, as
+    (query, slot, port id, ref id)."""
+    ids_port, ids_ref = np.asarray(ids_port), np.asarray(ids_ref)
+    d_port, d_ref = np.asarray(d_port), np.asarray(d_ref)
+    x, xq = np.asarray(x, np.float64), np.asarray(xq, np.float64)
+    assert ids_port.shape == ids_ref.shape
+    ties = []
+    for qi, j in zip(*np.nonzero(ids_port != ids_ref)):
+        a, b = int(ids_port[qi, j]), int(ids_ref[qi, j])
+        assert a >= 0 and b >= 0, (
+            f"query {qi} slot {j}: port id {a} vs reference id {b}")
+        if metric == "l2":
+            da = float(((x[a] - xq[qi]) ** 2).sum())
+            db = float(((x[b] - xq[qi]) ** 2).sum())
+        else:
+            da, db = -float(x[a] @ xq[qi]), -float(x[b] @ xq[qi])
+        assert abs(da - db) <= NEAR_TIE_REL * max(abs(da), abs(db)), (
+            f"query {qi} slot {j}: port id {a} (d={da}) vs reference id {b} "
+            f"(d={db}) is not a near tie")
+        ties.append((int(qi), int(j), a, b))
+    same = (ids_port == ids_ref) & np.isfinite(d_ref)
+    atol = np.full(d_ref.shape, 1e-6)
+    if expanded:
+        scale = (xq ** 2).sum(axis=1) + (x ** 2).sum(axis=1).max()
+        atol = np.broadcast_to(1e-6 * scale[:, None], d_ref.shape)
+    np.testing.assert_array_less(np.abs(d_port - d_ref)[same],
+                                 (atol + 1e-5 * np.abs(d_ref))[same] + 1e-30)
+    assert np.array_equal(np.isfinite(d_port), np.isfinite(d_ref))
+    return ties
