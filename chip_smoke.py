@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # SIFT1M-shaped LCPS index, n = 1,000,000
+    python3 chip_smoke.py   # SIFT1M-shaped LCPS index (n = 1,000,000) and
+                            # two-tower retrieval_cand (n = 1,048,576)
 
 Phases, each printed on its own line:
 
   device   the card's name and power limit (nvidia-smi); build the CUDA
-           kernels from ``src/repro_torch/csrc`` and print the build time.
+           kernels from ``src/repro_torch/csrc`` (one nvcc per source, all
+           started together) and print the build time.
   build    ``HybridIndex.build`` on the card: LCPS data of the paper's
            §7.1 SIFT1M shape (n = 1M, d = 128, 12 uniform labels,
            equality predicates), ACORN-γ with M = 32, γ = 12, M_β = 64.
   kernels  each kernel against its plain PyTorch version on the card, at
            the search path's shapes (B = 256) on rows of the built graph:
            gather_distance within rtol 1e-5 / atol 1e-4 (fp32 sums run in
-           another order), neighbor_expand bit-identical; then timed with
-           CUDA events.
+           another order), neighbor_expand bit-identical, filtered_topk
+           (B = 256, k = 10, l2, the index's vectors and LCPS masks) with
+           ids identical except at near ties and dists within rtol 1e-5 /
+           atol max(1e-4, 1e-6 (|q|^2 + |x|^2)); then timed with CUDA
+           events.
   serve    at least four 256-query requests through ``HybridIndex.search``
            with §5.2 routing (a forced request is added if a route got no
            query); launch counters are zeroed just before and read just
@@ -23,6 +28,19 @@ Phases, each printed on its own line:
   parity   16 graph-route queries through ``hybrid_search`` on the card
            (kernels) and on a CPU copy of the index (plain versions): ids
            identical except at near ties (distances within 1e-5 relative).
+  retrieve the two-tower arch's ``retrieval_cand`` step at its FULL width
+           (4,194,304 users, 2,097,152 items, E = 256, towers
+           1024-512-256): item embeddings of 1,048,576 candidates, a
+           ``category`` column (12 uniform labels, one rare label on 37
+           items); filtered_topk held against its plain version at the
+           path's shape (B = 1, k = 100, ip) and timed; then 64 batch-1
+           requests (Equals predicate -> mask -> step) with the launch
+           counters zeroed just before and read just after; p50 / p99
+           request time (and the p50 of its mask and step parts, each
+           ended by a synchronise), peak device memory; one batch-512
+           ``serve_p99``.
+  parity   8 of those requests on a CPU copy of the model, candidates and
+           table: ids identical except at near ties, scores within 1e-5.
 
 The second-to-last lines are the ``{"kernels": [...]}`` record and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -54,6 +72,15 @@ B = 256
 REQUESTS = 4   # requests of B queries on the main path
 ITERS = 50     # timed launches per kernel (the plain version: ITERS // 5)
 FLUSH_BYTES = 256 << 20   # overwritten before each timed call: > 50 MB L2
+TOPK_K = 10               # filtered_topk's second shape, on the LCPS index
+
+# two-tower retrieval_cand (repro_torch/configs/two_tower_retrieval.py FULL)
+N_CAND, CAND_CHUNK = 1_048_576, 65_536
+CATEGORIES, RARE_VALUE, RARE_ITEMS = 12, 12, 37
+RETRIEVE_REQUESTS, RARE_AT, WARMUP_REQUESTS = 64, 5, 2
+SERVE_BATCH, RETRIEVE_PARITY = 512, 8
+# relative width of a near tie in score (as in tests/torch_parity.py)
+NEAR_TIE_REL = 1e-5
 
 
 def log(phase: str, **kv) -> None:
@@ -156,38 +183,324 @@ def neighbor_expand_bound(row, tbl, pos, pm, vis, strategy, m, m_beta):
     return bound(byts, 0)
 
 
-def profile_request(index, request, route: str) -> None:
-    """Trace one request; print its wall time, the device's busy time and
-    idle share, and the device time of the heaviest kernels."""
+def filtered_topk_bound(q, x, mask, k: int, metric: str) -> dict:
+    """What this call's data needs, each byte once: the mask (one byte per
+    query and row), the rows that pass some query's mask (d floats each;
+    a row no query passes need not be read), the queries and the (ids,
+    dists) output; 2 d flops per passing (query, row) pair, plus 2 d per
+    row read for |x|^2 under l2.  The dense figures (every row read and
+    every pair scored) are returned beside it."""
+    b, n = mask.shape
+    d = x.shape[1]
+    rows = int(mask.any(dim=0).sum())
+    pairs = int(mask.sum())
+    io = b * n + b * d * 4 + b * k * 8
+    norms = 2 * d if metric == "l2" else 0
+    need, by = bound(io + rows * d * 4, 2 * d * pairs + norms * rows)
+    dense, dense_by = bound(io + n * d * 4, 2 * d * b * n + norms * n)
+    return dict(bound_ms=need, bound_by=by, dense_bound_ms=dense,
+                dense_bound_by=dense_by, rows_needed=rows)
+
+
+def assert_topk_match(ids, dists, want_ids, want_dists, q, x, metric: str,
+                      what: str, dist_atol: float = 1e-4) -> tuple:
+    """Ids identical except at near ties (the two rows' scores, recomputed
+    in float64, within NEAR_TIE_REL of the larger of the scores and, for
+    l2, of |q|^2 + |x|^2, the scale of the expanded form's rounding);
+    dists within rtol 1e-5 / ``dist_atol`` where the ids agree; padding
+    (-1 ids, infinite dists and their signs) identical.  For l2 the
+    absolute tolerance of a slot is at least 1e-6 (|q|^2 + |x|^2), as in
+    tests/torch_parity.py: both versions compute the expanded form (the
+    kernel |q|^2 - (2 q.x - |x|^2), the plain version |q|^2 + |x|^2 -
+    2 q.x), so each rounds at the scale of |q|^2 + |x|^2, not of the
+    distance.  Returns (max |err| of the finite dists, near ties)."""
+    import torch
+    ids, dists = ids.cpu(), dists.cpu()
+    want_ids, want_dists = want_ids.cpu(), want_dists.cpu()
+    inf = torch.isinf(want_dists)
+    if not (torch.equal(ids < 0, want_ids < 0)
+            and torch.equal(torch.isinf(dists), inf)
+            and torch.equal(torch.sign(dists[inf]),
+                            torch.sign(want_dists[inf]))):
+        raise AssertionError(f"{what}: padding differs from the plain "
+                             "version")
+    diff = (ids != want_ids).nonzero().tolist()
+    if len(diff) > 1000:
+        raise AssertionError(f"{what}: {len(diff)} ids differ")
+    for qi, j in diff:
+        a, b = int(ids[qi, j]), int(want_ids[qi, j])
+        qv = q[qi].double().cpu()
+        xa, xb = x[a].double().cpu(), x[b].double().cpu()
+        if metric == "l2":
+            da, db = float(((xa - qv) ** 2).sum()), float(((xb - qv) ** 2)
+                                                          .sum())
+            scale = float(qv @ qv) + max(float(xa @ xa), float(xb @ xb))
+        else:
+            da, db = float(xa @ qv), float(xb @ qv)
+            scale = 0.0
+        if abs(da - db) > NEAR_TIE_REL * max(abs(da), abs(db), scale):
+            raise AssertionError(f"{what}: query {qi} slot {j} ids {a} vs "
+                                 f"{b}, scores {da} vs {db} are not a near "
+                                 "tie")
+    same = (ids == want_ids) & ~inf
+    atol = torch.full(dists.shape, dist_atol, dtype=torch.float64)
+    if metric == "l2":
+        rows = x[ids.clamp(min=0).long().to(x.device)].double()
+        scale = (q.double() ** 2).sum(dim=1)[:, None] + (rows ** 2).sum(-1)
+        atol = torch.maximum(atol, 1e-6 * scale.cpu())
+    gap = (dists.double() - want_dists.double()).abs()
+    err = float(gap[same].max()) if bool(same.any()) else 0.0
+    if not bool((gap <= atol + 1e-5 * want_dists.double().abs())[same]
+                .all()):
+        raise AssertionError(f"{what}: dists disagree (max |err| {err})")
+    return err, len(diff)
+
+
+def measure_filtered_topk(q, x, mask, k: int, metric: str, flush,
+                          what: str) -> dict:
+    """Kernel vs plain version on the card, then the kernel, the plain
+    version and the library yardstick timed with a cold L2."""
+    import torch
+    from repro_torch.kernels.filtered_topk import (filtered_topk_cuda,
+                                                   filtered_topk_ref)
+    got = filtered_topk_cuda(q, x, mask, k, metric)
+    want = filtered_topk_ref(q, x, mask, k, metric)
+    torch.cuda.synchronize()
+    err, ties = assert_topk_match(*got, *want, q, x, metric, what)
+    neg = float("-inf")
+    if metric == "ip":
+        library = lambda: torch.topk(torch.where(mask, q @ x.T, neg), k)  # noqa: E731
+        calls = "torch.topk(torch.where(mask, q @ x.T, -inf), k): 3 calls"
+    else:
+        library = lambda: torch.topk(  # noqa: E731
+            torch.where(mask, -torch.cdist(q, x), neg), k)
+        calls = ("torch.topk(torch.where(mask, -torch.cdist(q, x), -inf), "
+                 "k): 4 calls")
+    rec = dict(
+        shape=f"q({q.shape[0]},{q.shape[1]}) x({x.shape[0]},{x.shape[1]}) "
+              f"k={k} {metric} mask_density={float(mask.float().mean()):.4f}",
+        max_abs_err=err, near_ties=ties,
+        ms=time_ms(lambda: filtered_topk_cuda(q, x, mask, k, metric),
+                   ITERS, flush),
+        plain_ms=time_ms(lambda: filtered_topk_ref(q, x, mask, k, metric),
+                         ITERS // 5, flush),
+        library_ms=time_ms(library, ITERS // 5, flush), library_calls=calls,
+        **filtered_topk_bound(q, x, mask, k, metric))
+    log("kernels", kernel="filtered_topk", **{
+        key: repr(v) if isinstance(v, str) else v for key, v in rec.items()})
+    return rec
+
+
+def profile_call(fn, **labels) -> None:
+    """Trace one call of ``fn`` (a request); print its wall time, the
+    device's busy time and idle share, and the device time of the heaviest
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        index.search(request)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_us = {}
+    dev_us, host_us = {}, {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0) or 0
         if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             dev_us[ev.key] = dev_us.get(ev.key, 0) + us
+        elif ev.self_cpu_time_total > 0:
+            host_us[ev.key] = ev.self_cpu_time_total
     busy_ms = sum(dev_us.values()) / 1e3
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
-    log("profile", route=route, wall_ms=f"{wall_ms:.1f}",
-        device_busy_ms=f"{busy_ms:.2f}",
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    top_host = sorted(host_us.items(), key=lambda kv: -kv[1])[:8]
+    log("profile", **labels, wall_ms=f"{wall_ms:.3f}",
+        device_busy_ms=f"{busy_ms:.3f}",
         idle_share=f"{1 - busy_ms / wall_ms:.3f}" if busy_ms else
         "not_measured",
-        top_ms=[(k[:48], round(v / 1e3, 3)) for k, v in top])
+        top_ms=[(k[:48], round(v / 1e3, 4)) for k, v in top],
+        top_host_ms=[(k[:40], round(v / 1e3, 4)) for k, v in top_host])
+
+
+def retrieve_phases(dev, flush, profile: bool) -> dict:
+    """The two-tower ``retrieval_cand`` path at FULL width, its kernel
+    check, the counted requests, ``serve_p99`` and the CPU parity; returns
+    filtered_topk's record."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.two_tower_retrieval import TOPK
+    from repro_torch.convert import table_from_arrays
+    from repro_torch.core import (Equals, compile_predicates,
+                                  evaluate_program, pack_columns, regex_aux)
+    from repro_torch.kernels.filtered_topk import filtered_topk_cuda
+    from repro_torch.kernels.gather_distance import gather_distance_cuda
+    from repro_torch.kernels.neighbor_expand import neighbor_expand_cuda
+    from repro_torch.models.recsys import TwoTower, set_two_tower_params
+
+    arch = get_arch("two-tower-retrieval")
+    cfg = arch.config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = arch.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cand = torch.cat([model.item_embed(torch.arange(
+        s, min(s + CAND_CHUNK, N_CAND), dtype=torch.int32, device=dev))
+        for s in range(0, N_CAND, CAND_CHUNK)])
+    torch.cuda.synchronize()
+    cand_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    category = rng.integers(0, CATEGORIES, size=N_CAND).astype(np.int32)
+    rare = rng.choice(N_CAND, RARE_ITEMS, replace=False)
+    category[rare] = RARE_VALUE
+    table = table_from_arrays({"category": category}, device=dev)
+    values = rng.integers(0, CATEGORIES, size=RETRIEVE_REQUESTS)
+    values[RARE_AT] = RARE_VALUE
+    n_feats = cfg.n_user_feats
+    batches = [{
+        "user_id": torch.as_tensor(rng.integers(0, cfg.n_users, size=1),
+                                   dtype=torch.int32, device=dev),
+        "user_feats": torch.as_tensor(
+            rng.integers(0, cfg.n_users, size=(1, n_feats)),
+            dtype=torch.int32, device=dev),
+        "item_id": torch.as_tensor(rng.integers(0, cfg.n_items, size=1),
+                                   dtype=torch.int32, device=dev),
+        "logq": torch.zeros(1, device=dev)} for _ in values]
+    preds = [Equals("category", int(v)) for v in values]
+    step = arch.step_fn(cfg, "retrieval_cand")
+    log("retrieve", users=cfg.n_users, items=cfg.n_items,
+        embed_dim=cfg.embed_dim, towers=cfg.tower_dims, candidates=N_CAND,
+        k=TOPK, init_s=f"{init_s:.3f}", cand_embed_s=f"{cand_s:.3f}",
+        memory_allocated=torch.cuda.memory_allocated() - mem0)
+
+    def mask_of(pred, tbl):
+        prog = compile_predicates([pred], tbl)
+        cols = pack_columns(tbl, prog.schema)
+        return evaluate_program(prog, cols.ints, cols.bitsets,
+                                regex_aux(tbl, prog.regex_leaves))
+
+    def request(i):
+        return step(model, batches[i], cand, mask_of(preds[i], table))
+
+    def timed_request(i):
+        """The request, synchronised after the mask and after the step:
+        (result, seconds of the whole, of the mask, of the step)."""
+        t0 = time.perf_counter()
+        mask = mask_of(preds[i], table)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = step(model, batches[i], cand, mask)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return res, (t2 - t0, t1 - t0, t2 - t1)
+
+    # the kernel against its plain version at the path's shape
+    u = model.user_embed(batches[0]).contiguous()
+    rec = measure_filtered_topk(u, cand, mask_of(preds[0], table), TOPK,
+                                "ip", flush, "filtered_topk retrieval_cand")
+
+    # the main path: counters zeroed just before the requests, read after
+    for i in range(WARMUP_REQUESTS):
+        request(i)
+    torch.cuda.synchronize()
+    for fn in (filtered_topk_cuda, gather_distance_cuda,
+               neighbor_expand_cuda):
+        fn.launches = 0
+    results, seconds = [], []
+    for i in range(RETRIEVE_REQUESTS):
+        res, secs = timed_request(i)
+        seconds.append(secs)
+        results.append(res)
+    launches = filtered_topk_cuda.launches
+    others = gather_distance_cuda.launches + neighbor_expand_cuda.launches
+    ms, mask_ms, step_ms = (np.array(v) * 1e3 for v in zip(*seconds))
+    log("retrieve", requests=RETRIEVE_REQUESTS,
+        p50_ms=f"{np.percentile(ms, 50):.4f}",
+        p99_ms=f"{np.percentile(ms, 99):.4f}",
+        requests_per_s=f"{RETRIEVE_REQUESTS / ms.sum() * 1e3:.2f}",
+        mask_p50_ms=f"{np.percentile(mask_ms, 50):.4f}",
+        step_p50_ms=f"{np.percentile(step_ms, 50):.4f}",
+        request_ms=[round(float(v), 3) for v in ms],
+        peak_memory_over_start=torch.cuda.max_memory_allocated() - mem0,
+        filtered_topk_launches=launches, other_kernel_launches=others)
+    if launches < RETRIEVE_REQUESTS:
+        raise AssertionError(f"filtered_topk launched {launches} times in "
+                             f"{RETRIEVE_REQUESTS} requests")
+    cat_t = torch.as_tensor(category, device=dev)
+    for v, (ids, scores) in zip(values, results):
+        if ids.shape != (1, TOPK) or not bool(
+                (cat_t[ids[ids >= 0].long()] == int(v)).all()):
+            raise AssertionError("a retrieved item fails its predicate")
+    ids, scores = results[RARE_AT]
+    if not (set(ids[0, :RARE_ITEMS].tolist()) == set(rare.tolist())
+            and bool((ids[0, RARE_ITEMS:] == -1).all())
+            and bool((scores[0, RARE_ITEMS:] == float("-inf")).all())
+            and bool(torch.isfinite(scores[0, :RARE_ITEMS]).all())):
+        raise AssertionError("rare request: not its 37 items followed by "
+                             "-1 / -inf padding")
+    if profile:
+        profile_call(lambda: request(0), path="retrieval_cand")
+
+    serve = arch.step_fn(cfg, "serve_p99")
+    sb = {"user_id": torch.as_tensor(
+              rng.integers(0, cfg.n_users, size=SERVE_BATCH),
+              dtype=torch.int32, device=dev),
+          "user_feats": torch.as_tensor(
+              rng.integers(0, cfg.n_users, size=(SERVE_BATCH, n_feats)),
+              dtype=torch.int32, device=dev),
+          "item_id": torch.as_tensor(
+              rng.integers(0, cfg.n_items, size=SERVE_BATCH),
+              dtype=torch.int32, device=dev),
+          "logq": torch.zeros(SERVE_BATCH, device=dev)}
+    serve(model, sb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve(model, sb)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    if out.shape != (SERVE_BATCH,) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("serve_p99 scores not finite of shape (512,)")
+    log("retrieve", serve_p99_batch=SERVE_BATCH, serve_ms=f"{serve_ms:.4f}")
+
+    # parity: the same requests on a CPU copy (plain versions)
+    t0 = time.perf_counter()
+    cpu_model = set_two_tower_params(
+        TwoTower(cfg, device="meta"), model.user_emb.cpu(),
+        model.item_emb.cpu(),
+        [[(lin.weight.cpu(), lin.bias.cpu()) for lin in tower]
+         for tower in (model.user_tower, model.item_tower)])
+    cand_cpu = cand.cpu()
+    table_cpu = table_from_arrays({"category": category}, device="cpu")
+    sel = [RARE_AT] + [i for i in range(RETRIEVE_PARITY) if i != RARE_AT]
+    ties, err = 0, 0.0
+    for i in sel[:RETRIEVE_PARITY]:
+        b_cpu = {k: v.cpu() for k, v in batches[i].items()}
+        ids_h, s_h = step(cpu_model, b_cpu, cand_cpu,
+                          mask_of(preds[i], table_cpu))
+        u_h = cpu_model.user_embed(b_cpu)
+        e, t = assert_topk_match(*results[i], ids_h, s_h, u_h, cand_cpu,
+                                 "ip", f"retrieval request {i} card vs CPU",
+                                 dist_atol=1e-5)
+        ties, err = ties + t, max(err, e)
+    log("parity", path="retrieval_cand", requests=RETRIEVE_PARITY,
+        near_ties=ties, max_abs_err=err,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    rec.update(launches=launches, name="filtered_topk", route="cuda",
+               source="src/repro_torch/csrc/filtered_topk.cu",
+               replaces="src/repro/kernels/filtered_topk/kernel.py:71")
+    return rec
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one request per route with "
-                         "torch.profiler and print where the device time "
-                         "goes")
+                    help="also trace one request per route, and one "
+                         "retrieval request, with torch.profiler and print "
+                         "where the device time goes")
     args = ap.parse_args(argv)
 
     import torch
@@ -331,7 +644,9 @@ def main(argv=None) -> int:
         bound_by=ne_by, library_ms=None,
         shape=f"row({B},{row0.shape[1]}) compress m={M} m_beta={M_BETA} "
               "pass_mask+visited"))
-    del vis, flush
+    del vis
+    topk_lcps = measure_filtered_topk(q, index.x, pm, TOPK_K, "l2", flush,
+                                      "filtered_topk LCPS")
 
     # ---- serve: the main path, counters zeroed just before ----
     requests = [SearchRequest(xq=wl.xq[i * B:(i + 1) * B],
@@ -393,9 +708,9 @@ def main(argv=None) -> int:
 
     if args.profile:
         for route in ("graph", "prefilter"):
-            profile_request(index, SearchRequest(
+            profile_call(lambda: index.search(SearchRequest(
                 xq=requests[0].xq, predicates=requests[0].predicates, k=K,
-                route=route), route)
+                route=route)), route=route)
 
     # ---- parity: card (kernels) vs a CPU copy (plain versions) ----
     gsel = np.nonzero(routes == "graph")[0][:16]
@@ -428,6 +743,11 @@ def main(argv=None) -> int:
         near_ties=ties, dists_close=close)
     if not close:
         raise AssertionError("card vs CPU distances disagree")
+
+    rec = retrieve_phases(dev, flush, args.profile)
+    rec["kernel_ms"] = rec["ms"]
+    rec["other_shapes"] = [topk_lcps]
+    records.append(rec)
 
     log("total", seconds=f"{time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": records}))

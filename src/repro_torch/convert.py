@@ -1,9 +1,10 @@
 """Carry the JAX reference's state across, as numpy arrays.
 
-The JAX package's ``LayeredGraph`` and ``AttributeTable`` are turned into
-numpy by the caller (``np.asarray`` on each field); these functions build
-the port's counterparts from that numpy alone, so this module never needs
-JAX.  The parity tests use it to search the reference's own graph.
+The JAX package's ``LayeredGraph``, ``AttributeTable`` and model
+parameter trees are turned into numpy by the caller (``np.asarray`` on
+each field or leaf); these functions build the port's counterparts from
+that numpy alone, so this module never needs JAX.  The parity tests use
+them to search the reference's own graph and run its own weights.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import torch
 from repro_torch.core.graph import LayeredGraph
 from repro_torch.core.predicates import AttributeTable
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.recsys import (TwoTower, TwoTowerConfig,
+                                       set_two_tower_params)
 
 
 def _i32(a, dev) -> torch.Tensor:
@@ -55,3 +58,27 @@ def table_from_arrays(int_cols: Mapping[str, np.ndarray],
         str_cols={k: np.asarray(v, dtype=object)
                   for k, v in (str_cols or {}).items()},
         n_keywords=dict(n_keywords or {}))
+
+
+def two_tower_params_from_arrays(tree: Mapping, cfg: TwoTowerConfig,
+                                 device: DeviceLike = "cuda") -> TwoTower:
+    """A :class:`TwoTower` that computes what the reference's
+    ``init_two_tower`` parameter tree computes.
+
+    ``tree`` has the reference's keys with numpy leaves: ``user_emb``,
+    ``item_emb``, and ``user_tower`` / ``item_tower`` each
+    ``{"w": [(d_in, d_out), ...], "b": [(d_out,), ...]}``; each ``w`` is
+    transposed into ``nn.Linear``'s (out, in)."""
+    dev = resolve_device(device)
+
+    def t(a, transpose=False):
+        a = np.asarray(a, dtype=np.float32)
+        return torch.from_numpy(np.array(a.T if transpose else a)).to(
+            device=dev, dtype=cfg.dtype)
+
+    towers = [[(t(w, transpose=True), t(b))
+               for w, b in zip(tree[name]["w"], tree[name]["b"])]
+              for name in ("user_tower", "item_tower")]
+    return set_two_tower_params(TwoTower(cfg, device="meta"),
+                                t(tree["user_emb"]), t(tree["item_emb"]),
+                                towers)

@@ -26,7 +26,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
-SOURCES = ("gather_distance.cu", "neighbor_expand.cu")
+SOURCES = ("filtered_topk.cu", "gather_distance.cu", "neighbor_expand.cu")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -107,6 +107,11 @@ def library() -> ctypes.CDLL:
             lib.repro_neighbor_expand.restype = i
             lib.repro_neighbor_expand_smem_bytes.argtypes = [i, i]
             lib.repro_neighbor_expand_smem_bytes.restype = i
+            lib.repro_filtered_topk.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                                i, p]
+            lib.repro_filtered_topk.restype = i
+            lib.repro_filtered_topk_workspace.argtypes = [i, i, i]
+            lib.repro_filtered_topk_workspace.restype = ctypes.c_longlong
             _LIB = lib
         return _LIB
 

@@ -16,12 +16,16 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.convert import graph_from_arrays, table_from_arrays
+from repro_torch.configs.two_tower_retrieval import REDUCED
+from repro_torch.convert import (graph_from_arrays, table_from_arrays,
+                                 two_tower_params_from_arrays)
 from repro_torch.core import (AcornConfig, HybridIndex, sentinel_result)
 from repro_torch.data import make_lcps_dataset
 from repro_torch.kernels import loader
+from repro_torch.kernels.filtered_topk import filtered_topk_cuda
 from repro_torch.kernels.gather_distance import gather_distance_cuda
 from repro_torch.kernels.neighbor_expand import neighbor_expand_cuda
+from repro_torch.models.recsys import init_two_tower
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -68,6 +72,12 @@ ENTRY_POINTS = {
         torch.zeros((8, 4)), table_from_arrays({"label": np.zeros(8)},
                                                device="cpu"),
         AcornConfig(M=4, gamma=2)),
+    "init_two_tower": lambda: init_two_tower(REDUCED),
+    "two_tower_params_from_arrays": lambda: two_tower_params_from_arrays(
+        {"user_emb": np.zeros((REDUCED.n_users, REDUCED.embed_dim)),
+         "item_emb": np.zeros((REDUCED.n_items, REDUCED.embed_dim)),
+         "user_tower": {"w": [], "b": []}, "item_tower": {"w": [], "b": []}},
+        REDUCED),
 }
 
 
@@ -100,3 +110,6 @@ def test_cuda_launchers_refuse_cpu_tensors():
         neighbor_expand_cuda(ids, torch.zeros((4, 3), dtype=torch.int32),
                              torch.arange(4, dtype=torch.int32),
                              strategy="filter", m=2)
+    with pytest.raises(ValueError, match="cuda"):
+        filtered_topk_cuda(torch.zeros((2, 8)), x,
+                           torch.ones((2, 4), dtype=torch.bool), 2)

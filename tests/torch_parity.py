@@ -74,7 +74,7 @@ def assert_ids_match(ids_port, ids_ref, d_port, d_ref, x, xq, metric="l2",
     if expanded:
         scale = (xq ** 2).sum(axis=1) + (x ** 2).sum(axis=1).max()
         atol = np.broadcast_to(1e-6 * scale[:, None], d_ref.shape)
-    np.testing.assert_array_less(np.abs(d_port - d_ref)[same],
+    np.testing.assert_array_less(np.abs(d_port[same] - d_ref[same]),
                                  (atol + 1e-5 * np.abs(d_ref))[same] + 1e-30)
     assert np.array_equal(np.isfinite(d_port), np.isfinite(d_ref))
     return ties
