@@ -18,16 +18,18 @@ Phases, each printed on its own line:
            another order), neighbor_expand bit-identical, filtered_topk
            (B = 256, k = 10, l2, the index's vectors and LCPS masks) with
            ids identical except at near ties and dists within rtol 1e-5 /
-           atol max(1e-4, 1e-6 (|q|^2 + |x|^2)); then timed with CUDA
-           events.
+           atol max(1e-4, 1e-6 (|q|^2 + |x|^2)), and the same at
+           ``TOPK_EDGE_CASES`` (padding, partial tiles, k = n, ties, k at
+           its cap of 256, two and three merge rounds); then timed with
+           CUDA events.
   serve    at least four 256-query requests through ``HybridIndex.search``
            with §5.2 routing (a forced request is added if a route got no
            query); launch counters are zeroed just before and read just
            after; QPS, route counts and recall@10 per route against the
            exact ground truth computed on the card.
   parity   16 graph-route queries through ``hybrid_search`` on the card
-           (kernels) and on a CPU copy of the index (plain versions): ids
-           identical except at near ties (distances within 1e-5 relative).
+           (kernels) and on a CPU copy of the index (plain versions),
+           compared as filtered_topk is against its plain version.
   retrieve the two-tower arch's ``retrieval_cand`` step at its FULL width
            (4,194,304 users, 2,097,152 items, E = 256, towers
            1024-512-256): item embeddings of 1,048,576 candidates, a
@@ -73,6 +75,24 @@ REQUESTS = 4   # requests of B queries on the main path
 ITERS = 50     # timed launches per kernel (the plain version: ITERS // 5)
 FLUSH_BYTES = 256 << 20   # overwritten before each timed call: > 50 MB L2
 TOPK_K = 10               # filtered_topk's second shape, on the LCPS index
+# filtered_topk's edge cases, the same as CARD_CASES in
+# tests/test_torch_filtered_topk.py (case i is drawn with seed i); tile
+# lists hold 8192 rows and a merge CTA takes 16384 // next_pow2(k) lists
+TOPK_EDGE_CASES = [
+    dict(b=5, n=777, d=24, k=9, p=0.2, empty_rows=True),
+    dict(b=3, n=20_000, d=13, k=100, p=0.3, empty_rows=True),  # scalar loads
+    dict(b=2, n=40_000, d=64, k=256, p=0.05),     # several tiles, k at cap
+    dict(b=4, n=9_000, d=16, k=33, dup=True),
+    dict(b=1, n=70_000, d=8, k=1, p=1.1),
+    dict(b=2, n=100, d=8, k=100, p=0.3),          # k = n, one tile
+    dict(b=1, n=64, d=3, k=64, p=1.1, dup=True),  # k = n = the least tile
+    # merge rounds: 128 lists in groups of 64 (two rounds), 611 in groups
+    # of 128 (two), 4151 in groups of 64 (three: the workspace ping-pongs
+    # back); integer data, so both versions score exactly and ties are exact
+    dict(b=2, n=1 << 20, d=4, k=256, ints=True),
+    dict(b=3, n=5_000_000, d=4, k=128, ints=True),
+    dict(b=1, n=34_000_000, d=4, k=256, ints=True),
+]
 
 # two-tower retrieval_cand (repro_torch/configs/two_tower_retrieval.py FULL)
 N_CAND, CAND_CHUNK = 1_048_576, 65_536
@@ -254,6 +274,60 @@ def assert_topk_match(ids, dists, want_ids, want_dists, q, x, metric: str,
                 .all()):
         raise AssertionError(f"{what}: dists disagree (max |err| {err})")
     return err, len(diff)
+
+
+def topk_inputs(b, n, d, p=0.5, seed=0, dup=False, empty_rows=False,
+                ints=False):
+    """(q, x, mask) numpy arrays of an edge case, as
+    tests/test_torch_filtered_topk.py draws them."""
+    rng = np.random.default_rng(seed)
+    if ints:
+        q = rng.integers(-64, 65, size=(b, d)).astype(np.float32)
+        x = rng.integers(-64, 65, size=(n, d)).astype(np.float32)
+    else:
+        q = rng.normal(size=(b, d)).astype(np.float32)
+        x = rng.normal(size=(n, d)).astype(np.float32)
+    if dup:   # blocks of identical rows: the tie order decides
+        x = x[np.arange(n) // 7]
+    mask = rng.random((b, n)) < p
+    if empty_rows:
+        mask[0, :] = False                      # nothing passes
+        if b > 1:
+            mask[1, :] = False
+            mask[1, n - n // 8:] = True         # only the last rows pass
+    return q, x, mask
+
+
+def check_filtered_topk_edges(dev) -> int:
+    """The kernel against its plain version on the card at
+    TOPK_EDGE_CASES, both metrics; returns the near ties."""
+    import torch
+    from repro_torch.kernels.filtered_topk import (filtered_topk_cuda,
+                                                   filtered_topk_ref)
+    from repro_torch.kernels.filtered_topk.kernel import KMAX
+    ties = 0
+    for ci, case in enumerate(TOPK_EDGE_CASES):
+        kw = dict(case)
+        k = kw.pop("k")
+        q, x, mask = (torch.from_numpy(a).to(dev)
+                      for a in topk_inputs(**kw, seed=ci))
+        for metric in ("l2", "ip"):
+            got = filtered_topk_cuda(q, x, mask, k, metric)
+            want = filtered_topk_ref(q, x, mask, k, metric)
+            torch.cuda.synchronize()
+            ties += assert_topk_match(*got, *want, q, x, metric,
+                                      f"filtered_topk {case} {metric}")[1]
+    q, x, mask = (torch.from_numpy(a).to(dev) for a in topk_inputs(1, 300, 4))
+    try:
+        filtered_topk_cuda(q, x, mask, KMAX + 1, "ip")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"filtered_topk_cuda took k = {KMAX + 1} > "
+                             "its cap")
+    log("kernels", kernel="filtered_topk", edge_cases=len(TOPK_EDGE_CASES) * 2,
+        near_ties=ties, k_above_cap_raises=True)
+    return ties
 
 
 def measure_filtered_topk(q, x, mask, k: int, metric: str, flush,
@@ -469,7 +543,7 @@ def retrieve_phases(dev, flush, profile: bool) -> dict:
     # parity: the same requests on a CPU copy (plain versions)
     t0 = time.perf_counter()
     cpu_model = set_two_tower_params(
-        TwoTower(cfg, device="meta"), model.user_emb.cpu(),
+        TwoTower(cfg), model.user_emb.cpu(),
         model.item_emb.cpu(),
         [[(lin.weight.cpu(), lin.bias.cpu()) for lin in tower]
          for tower in (model.user_tower, model.item_tower)])
@@ -647,6 +721,7 @@ def main(argv=None) -> int:
     del vis
     topk_lcps = measure_filtered_topk(q, index.x, pm, TOPK_K, "l2", flush,
                                       "filtered_topk LCPS")
+    check_filtered_topk_edges(dev)
 
     # ---- serve: the main path, counters zeroed just before ----
     requests = [SearchRequest(xq=wl.xq[i * B:(i + 1) * B],
@@ -721,28 +796,9 @@ def main(argv=None) -> int:
     x_cpu = index.x.cpu()
     ids_h, d_h, _ = hybrid_search(g.to("cpu"), x_cpu, qs.cpu(), ms.cpu(),
                                   **kw)
-    ids_c, d_c = ids_c.cpu(), d_c.cpu()
-    diff = ids_c != ids_h
-    ties = 0
-    for qi_, j in diff.nonzero().tolist():
-        a, b_ = int(ids_c[qi_, j]), int(ids_h[qi_, j])
-        if a < 0 or b_ < 0:
-            raise AssertionError(f"card vs CPU: query {qi_} slot {j} "
-                                 f"{a} vs {b_}")
-        qv = qs[qi_].cpu().double()
-        da = float(((x_cpu[a].double() - qv) ** 2).sum())
-        db = float(((x_cpu[b_].double() - qv) ** 2).sum())
-        if abs(da - db) > 1e-5 * max(abs(da), abs(db)):
-            raise AssertionError(
-                f"card vs CPU: query {qi_} slot {j} ids {a} vs {b_}, "
-                f"distances {da} vs {db} are not a near tie")
-        ties += 1
-    same = ~diff & torch.isfinite(d_h)
-    close = bool(torch.allclose(d_c[same], d_h[same], rtol=1e-5, atol=1e-4))
-    log("parity", queries=len(gsel), differing_slots=ties,
-        near_ties=ties, dists_close=close)
-    if not close:
-        raise AssertionError("card vs CPU distances disagree")
+    err, ties = assert_topk_match(ids_c, d_c, ids_h, d_h, qs.cpu(), x_cpu,
+                                  "l2", "graph route card vs CPU")
+    log("parity", queries=len(gsel), near_ties=ties, max_abs_err=err)
 
     rec = retrieve_phases(dev, flush, args.profile)
     rec["kernel_ms"] = rec["ms"]

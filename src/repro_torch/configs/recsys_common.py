@@ -52,13 +52,11 @@ class RecsysArchBase:
         return [CellDef(s, spec["kind"])
                 for s, spec in RECSYS_SHAPES.items()]
 
-    def module(self, cfg, device=None) -> torch.nn.Module:
-        """The arch's model with empty parameters on ``device``."""
+    def module(self, cfg) -> torch.nn.Module:
+        """The arch's model, on the ``meta`` device (nothing allocated)."""
         raise NotImplementedError
 
     def abstract_params(self, cfg) -> Dict[str, TensorSpec]:
-        """Parameter name -> :class:`TensorSpec`, from the model built on
-        the ``meta`` device (nothing is allocated)."""
+        """Parameter name -> :class:`TensorSpec`, from :meth:`module`."""
         return {name: TensorSpec(tuple(p.shape), p.dtype)
-                for name, p in self.module(cfg, device="meta")
-                .named_parameters()}
+                for name, p in self.module(cfg).named_parameters()}

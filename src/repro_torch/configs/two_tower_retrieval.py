@@ -33,11 +33,11 @@ TOPK = 100
 class TwoTowerArch(RecsysArchBase):
     name = "two-tower-retrieval"
 
-    def config(self, reduced: bool = False, shape: Optional[str] = None):
+    def config(self, reduced: bool = False):
         return REDUCED if reduced else FULL
 
-    def module(self, cfg, device=None) -> TwoTower:
-        return TwoTower(cfg, device=device)
+    def module(self, cfg) -> TwoTower:
+        return TwoTower(cfg)
 
     def init(self, cfg, generator: Optional[torch.Generator] = None,
              device: DeviceLike = "cuda") -> TwoTower:
@@ -51,7 +51,7 @@ class TwoTowerArch(RecsysArchBase):
             "logq": TensorSpec((b,), torch.float32),
         }
 
-    def step_fn(self, cfg, shape: str, reduced: bool = False, mesh=None):
+    def step_fn(self, cfg, shape: str, mesh=None):
         """``serve``: (model, batch) -> (B,) user-item scores.
         ``retrieval``: (model, batch, cand_embs (n, E'), mask (B, n)) ->
         (ids (B, k), scores (B, k)), k = min(TOPK, n), +u.v scores."""

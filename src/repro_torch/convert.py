@@ -79,6 +79,6 @@ def two_tower_params_from_arrays(tree: Mapping, cfg: TwoTowerConfig,
     towers = [[(t(w, transpose=True), t(b))
                for w, b in zip(tree[name]["w"], tree[name]["b"])]
               for name in ("user_tower", "item_tower")]
-    return set_two_tower_params(TwoTower(cfg, device="meta"),
+    return set_two_tower_params(TwoTower(cfg),
                                 t(tree["user_emb"]), t(tree["item_emb"]),
                                 towers)

@@ -8,9 +8,10 @@ inner-product corpora.
 Tie rule: the lower id wins a tie in score, as in the reference (its
 running top-k keeps the best-so-far before each block and ``lax.top_k``
 keeps the lower index).  ``torch.topk`` promises no order among ties, so
-``topk_lowid`` (``kernels/filtered_topk/ref.py``) re-sorts the selection
-on (score, id) and redoes any row whose boundary value is tied beyond the
-selection with a full stable sort.
+:func:`_topk_lowid` re-sorts the selection on (score, id) and redoes any
+row whose boundary value is tied beyond the selection with a full stable
+sort.  :func:`masked_topk` is also the plain version of the filtered_topk
+kernel (``kernels/filtered_topk/ref.py``).
 
 Sign of ``metric='ip'``: :func:`masked_topk` returns **+q.x** for ip, as
 the reference does, while ``gather_distance`` (the graph route) returns
@@ -22,8 +23,6 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-
-from repro_torch.kernels.filtered_topk.ref import topk_lowid
 
 Tensor = torch.Tensor
 
@@ -49,6 +48,24 @@ def _scores(q: Tensor, x: Tensor, metric: str) -> Tensor:
     raise ValueError(metric)
 
 
+def _topk_lowid(s: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """Top-k of each row of ``s`` (B, n) by (score desc, index asc)."""
+    vals, idx = torch.topk(s, k, dim=1, largest=True, sorted=True)
+    # order ties inside the selection by index
+    o = torch.argsort(idx, dim=1)
+    vals, idx = torch.gather(vals, 1, o), torch.gather(idx, 1, o)
+    o = torch.argsort(vals, dim=1, descending=True, stable=True)
+    vals, idx = torch.gather(vals, 1, o), torch.gather(idx, 1, o)
+    # a tie at the boundary may have left out a lower index: redo such rows
+    kth = vals[:, -1:]
+    bad = ((s >= kth).sum(dim=1) > k) & (kth[:, 0] > NEG_INF)
+    if bool(bad.any()):
+        rows = bad.nonzero()[:, 0]
+        sv, si = torch.sort(s[rows], dim=1, descending=True, stable=True)
+        vals[rows], idx[rows] = sv[:, :k], si[:, :k]
+    return vals, idx
+
+
 def masked_topk(q: Tensor, x: Tensor, mask: Optional[Tensor], k: int,
                 metric: str = "l2") -> Tuple[Tensor, Tensor]:
     """Exact top-k over rows of ``x`` passing ``mask``.
@@ -70,7 +87,7 @@ def masked_topk(q: Tensor, x: Tensor, mask: Optional[Tensor], k: int,
         s = _scores(q[sl], x, metric)
         if mask is not None:
             s = s.masked_fill(~mask[sl], NEG_INF)
-        v, i = topk_lowid(s, kk)
+        v, i = _topk_lowid(s, kk)
         best_s[sl, :kk] = v
         best_i[sl, :kk] = i.to(torch.int32)
     best_i = torch.where(best_s == NEG_INF, torch.full_like(best_i, -1),

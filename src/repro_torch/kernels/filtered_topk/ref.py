@@ -1,12 +1,13 @@
 """Plain PyTorch version of the filtered_topk kernel.
 
-The same formulas as the reference's plain route
-(``repro/kernels/filtered_topk/ref.py``): scores are -(|q|^2 + |x|^2 -
-2 q.x) for l2 and q.x for ip, masked rows score -inf, and the k best are
-kept with the lower id first among equal scores.  Dists are squared L2 for
-l2 and **+q.x** for ip (the reference's docstring says negative IP; its
-code returns +q.x, and so does the port).  Slots past the last passing row
-hold id -1 and dist -score: +inf for l2, -inf for ip.
+The same function as the reference's plain route
+(``repro/kernels/filtered_topk/ref.py``) and as
+``repro_torch.core.bruteforce.masked_topk``, which computes it: scores are
+-(|q|^2 + |x|^2 - 2 q.x) for l2 and q.x for ip, masked rows score -inf,
+and the k best are kept with the lower id first among equal scores.  Dists
+are squared L2 for l2 and **+q.x** for ip (the reference's docstring says
+negative IP; its code returns +q.x, and so does the port).  Slots past the
+last passing row hold id -1 and dist -score: +inf for l2, -inf for ip.
 """
 from __future__ import annotations
 
@@ -14,30 +15,9 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.bruteforce import masked_topk
+
 Tensor = torch.Tensor
-
-NEG_INF = float("-inf")
-
-
-def topk_lowid(s: Tensor, k: int) -> Tuple[Tensor, Tensor]:
-    """Top-k of each row of ``s`` (B, n) by (score desc, index asc).
-
-    ``torch.topk`` promises no order among ties, so the selection is
-    re-sorted on (score, index), and a row whose k-th score is tied beyond
-    the selection (which may have left out a lower index) is redone with a
-    full stable sort."""
-    vals, idx = torch.topk(s, k, dim=1, largest=True, sorted=True)
-    o = torch.argsort(idx, dim=1)
-    vals, idx = torch.gather(vals, 1, o), torch.gather(idx, 1, o)
-    o = torch.argsort(vals, dim=1, descending=True, stable=True)
-    vals, idx = torch.gather(vals, 1, o), torch.gather(idx, 1, o)
-    kth = vals[:, -1:]
-    bad = ((s >= kth).sum(dim=1) > k) & (kth[:, 0] > NEG_INF)
-    if bool(bad.any()):
-        rows = bad.nonzero()[:, 0]
-        sv, si = torch.sort(s[rows], dim=1, descending=True, stable=True)
-        vals[rows], idx[rows] = sv[:, :k], si[:, :k]
-    return vals, idx
 
 
 def filtered_topk_ref(q: Tensor, x: Tensor, mask: Tensor, k: int,
@@ -48,16 +28,4 @@ def filtered_topk_ref(q: Tensor, x: Tensor, mask: Tensor, k: int,
     n = x.shape[0]
     if k > n:
         raise ValueError(f"filtered_topk: k = {k} > n = {n}")
-    if metric == "l2":
-        d2 = ((q * q).sum(dim=1, keepdim=True) + (x * x).sum(dim=1)[None, :]
-              - (2.0 * q) @ x.T)
-        s = -d2
-    elif metric == "ip":
-        s = q @ x.T
-    else:
-        raise ValueError(metric)
-    s = s.masked_fill(~mask, NEG_INF)
-    top_s, top_i = topk_lowid(s, k)
-    ids = torch.where(torch.isfinite(top_s), top_i.to(torch.int32),
-                      torch.full_like(top_i, -1, dtype=torch.int32))
-    return ids, (-top_s if metric == "l2" else top_s)
+    return masked_topk(q, x, mask, k, metric)

@@ -13,7 +13,7 @@ and DCN-v2.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -49,11 +49,10 @@ class TwoTowerConfig:
     dtype: torch.dtype = torch.float32
 
 
-def _tower(dims: Sequence[int], device, dtype) -> nn.ModuleList:
-    """Linear layers dims[0] -> ... -> dims[-1], parameters left empty."""
+def _tower(dims: Sequence[int], dtype) -> nn.ModuleList:
+    """Linear layers dims[0] -> ... -> dims[-1], on the meta device."""
     return nn.ModuleList(
-        nn.utils.skip_init(nn.Linear, dims[i], dims[i + 1], device=device,
-                           dtype=dtype)
+        nn.Linear(dims[i], dims[i + 1], device="meta", dtype=dtype)
         for i in range(len(dims) - 1))
 
 
@@ -74,37 +73,34 @@ def _l2_normalize(z: Tensor) -> Tensor:
 class TwoTower(nn.Module):
     """User and item embedding tables plus one MLP tower each.
 
-    Constructed with empty parameters (on ``device="meta"``: none at
-    all); :func:`init_two_tower` draws them and
+    Constructed on the ``meta`` device, so nothing is allocated:
+    :func:`init_two_tower` draws the parameters and
     ``repro_torch.convert.two_tower_params_from_arrays`` carries a
     reference tree in, both through :func:`set_two_tower_params`."""
 
-    def __init__(self, cfg: TwoTowerConfig, device=None):
+    def __init__(self, cfg: TwoTowerConfig):
         super().__init__()
         self.cfg = cfg
         e = cfg.embed_dim
         self.user_emb = nn.Parameter(torch.empty(
-            (cfg.n_users, e), dtype=cfg.dtype, device=device))
+            (cfg.n_users, e), dtype=cfg.dtype, device="meta"))
         self.item_emb = nn.Parameter(torch.empty(
-            (cfg.n_items, e), dtype=cfg.dtype, device=device))
+            (cfg.n_items, e), dtype=cfg.dtype, device="meta"))
         self.user_tower = _tower((e * (1 + cfg.n_user_feats),)
-                                 + tuple(cfg.tower_dims), device, cfg.dtype)
-        self.item_tower = _tower((e,) + tuple(cfg.tower_dims), device,
-                                 cfg.dtype)
+                                 + tuple(cfg.tower_dims), cfg.dtype)
+        self.item_tower = _tower((e,) + tuple(cfg.tower_dims), cfg.dtype)
 
-    def user_embed(self, batch: Dict[str, Tensor],
-                   lookup: Callable = default_lookup) -> Tensor:
+    def user_embed(self, batch: Dict[str, Tensor]) -> Tensor:
         """batch['user_id'] (B,), batch['user_feats'] (B, F) ->
         (B, E') L2-normalised user embeddings."""
-        u = lookup(self.user_emb, batch["user_id"])              # (B, E)
-        f = lookup(self.user_emb, batch["user_feats"])           # (B, F, E)
+        u = default_lookup(self.user_emb, batch["user_id"])      # (B, E)
+        f = default_lookup(self.user_emb, batch["user_feats"])   # (B, F, E)
         z = torch.cat([u, f.reshape(u.shape[0], -1)], dim=-1)
         return _l2_normalize(_apply_tower(self.user_tower, z))
 
-    def item_embed(self, item_ids: Tensor,
-                   lookup: Callable = default_lookup) -> Tensor:
+    def item_embed(self, item_ids: Tensor) -> Tensor:
         """item_ids (...,) -> (..., E') L2-normalised item embeddings."""
-        i = lookup(self.item_emb, item_ids)
+        i = default_lookup(self.item_emb, item_ids)
         return _l2_normalize(_apply_tower(self.item_tower, i))
 
     def score_candidates(self, batch: Dict[str, Tensor],
@@ -117,8 +113,7 @@ class TwoTower(nn.Module):
 def set_two_tower_params(model: TwoTower, user_emb: Tensor, item_emb: Tensor,
                          towers: Sequence[Sequence[Tuple[Tensor, Tensor]]]
                          ) -> TwoTower:
-    """Give ``model`` (typically built on the ``meta`` device, so nothing
-    was allocated) the tables and the (weight (out, in), bias) pairs of its
+    """Give ``model`` (built on the ``meta`` device) the tables and the (weight (out, in), bias) pairs of its
     user and item towers, in that order.  The tensors become the
     parameters as they are, without a copy."""
     layers = [list(t) for t in towers]
@@ -155,7 +150,7 @@ def init_two_tower(cfg: TwoTowerConfig,
     e = cfg.embed_dim
     user_emb = embed_init(generator, cfg.n_users, e, cfg.dtype)
     item_emb = embed_init(generator, cfg.n_items, e, cfg.dtype)
-    model = TwoTower(cfg, device="meta")
+    model = TwoTower(cfg)
     towers = [[(dense_init(generator, lin.in_features, lin.out_features,
                            cfg.dtype).T.contiguous(),
                 torch.zeros(lin.out_features, dtype=cfg.dtype, device=dev))

@@ -25,10 +25,15 @@ from repro_torch.kernels.filtered_topk.kernel import KMAX
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 
 
-def _inputs(b, n, d, p=0.5, seed=0, dup=False, empty_rows=False):
+def _inputs(b, n, d, p=0.5, seed=0, dup=False, empty_rows=False,
+            ints=False):
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(b, d)).astype(np.float32)
-    x = rng.normal(size=(n, d)).astype(np.float32)
+    if ints:  # small integers: both versions score exactly
+        q = rng.integers(-64, 65, size=(b, d)).astype(np.float32)
+        x = rng.integers(-64, 65, size=(n, d)).astype(np.float32)
+    else:
+        q = rng.normal(size=(b, d)).astype(np.float32)
+        x = rng.normal(size=(n, d)).astype(np.float32)
     if dup:   # blocks of identical rows: the tie order decides
         x = x[np.arange(n) // 7]
     mask = rng.random((b, n)) < p
@@ -111,12 +116,19 @@ def test_cpu_tensors_route_to_plain_version():
     assert filtered_topk_cuda.launches == before
 
 
+# the same as TOPK_EDGE_CASES in chip_smoke.py, which runs them on the card
 CARD_CASES = [
     dict(b=5, n=777, d=24, k=9, p=0.2, empty_rows=True),
     dict(b=3, n=20_000, d=13, k=100, p=0.3, empty_rows=True),  # scalar loads
     dict(b=2, n=40_000, d=64, k=KMAX, p=0.05),    # several tiles, k at cap
     dict(b=4, n=9_000, d=16, k=33, dup=True),
     dict(b=1, n=70_000, d=8, k=1, p=1.1),
+    dict(b=2, n=100, d=8, k=100, p=0.3),          # k = n, one tile
+    dict(b=1, n=64, d=3, k=64, p=1.1, dup=True),  # k = n = the least tile
+    # two, two and three merge rounds of the tile lists
+    dict(b=2, n=1 << 20, d=4, k=KMAX, ints=True),
+    dict(b=3, n=5_000_000, d=4, k=128, ints=True),
+    dict(b=1, n=34_000_000, d=4, k=KMAX, ints=True),
 ]
 
 

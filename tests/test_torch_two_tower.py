@@ -98,7 +98,7 @@ def test_retrieval_cand_matches_reference(models, p):
     want_ids, want_s = jstep(jparams, {k: jnp.asarray(v)
                                        for k, v in batch.items()},
                              jnp.asarray(cand), jnp.asarray(mask))
-    step = ARCH.step_fn(cfg, "retrieval_cand", reduced=True)
+    step = ARCH.step_fn(cfg, "retrieval_cand")
     before = filtered_topk_cuda.launches
     ids, s = step(model, {k: torch.from_numpy(v) for k, v in batch.items()},
                   torch.from_numpy(cand), torch.from_numpy(mask))
@@ -119,7 +119,7 @@ def test_serve_p99_matches_reference(models):
     jcfg, jparams, cfg, model = models
     jb, tb = _batch(cfg, 8, seed=3)
     want = JARCH.step_fn(jcfg, "serve_p99", reduced=True)(jparams, jb)
-    got = ARCH.step_fn(cfg, "serve_p99", reduced=True)(model, tb)
+    got = ARCH.step_fn(cfg, "serve_p99")(model, tb)
     assert got.shape == (8,)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
@@ -154,11 +154,11 @@ def test_cells_match_reference():
 def test_unported_kinds_and_arches_raise():
     cfg = ARCH.config(reduced=True)
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ARCH.step_fn(cfg, "train_batch", reduced=True)
+        ARCH.step_fn(cfg, "train_batch")
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         ARCH.abstract_inputs(cfg, "train_batch", reduced=True)
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ARCH.step_fn(cfg, "retrieval_cand", reduced=True, mesh=object())
+        ARCH.step_fn(cfg, "retrieval_cand", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         get_arch("dien")
 
