@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py   # SIFT1M-shaped LCPS index (n = 1,000,000) and
-                            # two-tower retrieval_cand (n = 1,048,576)
+    python3 chip_smoke.py   # SIFT1M-shaped LCPS index (n = 1,000,000),
+                            # two-tower retrieval_cand (n = 1,048,576),
+                            # embedding_bag and PNA molecule inference
 
 Phases, each printed on its own line:
 
@@ -43,6 +44,26 @@ Phases, each printed on its own line:
            ``serve_p99``.
   parity   8 of those requests on a CPU copy of the model, candidates and
            table: ids identical except at near ties, scores within 1e-5.
+  bag      the ``embedding_bag`` op (forward and gradient) over the same
+           model's ``user_emb`` table (4,194,304 x 256, 4.29 GB): the
+           kernel against its plain version at ``BAG_EDGE_CASES`` and at
+           the recsys shapes, ids (512, 4) (``serve_p99`` batch x
+           ``n_user_feats``) and (65,536, 4) (``train_batch``), ~25 % -1
+           padding, sum and mean, within rtol / atol 1e-5; timed; then the
+           op at those shapes with the launch counters zeroed just before
+           and read just after, and its gradient at (65,536, 4) against a
+           CPU copy.
+  pna      PNA (``get_arch("pna")``, ``molecule`` shape: 4 layers,
+           d_in 16, d_hidden 75, 2 classes) with random weights from a
+           seed: ``pna_aggregate`` against its plain version at
+           ``PNA_EDGE_CASES`` and at the path shape adj (128, 30, 30),
+           feats (128, 30, 75) and a bulk shape of 16,384 graphs (max / min
+           exact, mean rtol 1e-5 / atol 1e-6, std atol 2e-3); timed; then
+           64 requests of 128 molecule-like graphs through
+           ``forward_dense``, counters zeroed just before and read just
+           after (``pna_aggregate`` must launch 4 x 64 times); p50 / p99
+           request time and graphs/s; 8 requests against a CPU copy
+           (logits within atol 2e-3).
 
 The second-to-last lines are the ``{"kernels": [...]}`` record and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -101,6 +122,34 @@ RETRIEVE_REQUESTS, RARE_AT, WARMUP_REQUESTS = 64, 5, 2
 SERVE_BATCH, RETRIEVE_PARITY = 512, 8
 # relative width of a near tie in score (as in tests/torch_parity.py)
 NEAR_TIE_REL = 1e-5
+
+# embedding_bag over the two-tower FULL user table: (bags, ids per bag) of
+# serve_p99 (batch 512) and train_batch (65,536), n_user_feats = 4 each
+BAG_SHAPES = ((512, 4), (65_536, 4))
+BAG_PAD = 0.25            # share of -1 ids
+BAG_TOL = dict(rtol=1e-5, atol=1e-5)
+# the same as CARD_CASES in tests/test_torch_embedding_bag.py (case i is
+# drawn with seed i)
+BAG_EDGE_CASES = [
+    dict(b=16, l=8, v=1000, d=32), dict(b=3, l=4, v=10, d=8, kind="padding"),
+    dict(b=6, l=5, v=9, d=8, kind="clip"),
+    dict(b=4, l=6, v=20, d=8, kind="dup"), dict(b=7, l=5, v=30, d=13),
+    dict(b=1000, l=4, v=5000, d=256), dict(b=33, l=9, v=70, d=260),
+    dict(b=9, l=3, v=40, d=600), dict(b=5, l=0, v=10, d=8)]
+
+# PNA dense-batched inference (repro_torch/configs/pna.py, molecule shape)
+PNA_REQUESTS, PNA_WARMUP, PNA_PARITY = 64, 2, 8
+PNA_BULK_GRAPHS = 16_384  # the bulk shape: a molecule library scored offline
+PNA_LOGITS_ATOL = 2e-3    # as tests/test_torch_pna.py
+# the same as CARD_CASES in tests/test_torch_pna_aggregate.py (case i is
+# drawn with seed i); N = 33 and 128 cross the kernel's 32-row source tile
+PNA_EDGE_CASES = [
+    dict(b=1, n=8, f=4), dict(b=2, n=30, f=75),
+    dict(b=2, n=9, f=5, kind="zero"), dict(b=2, n=10, f=6, kind="full"),
+    dict(b=3, n=30, f=16, kind="molecule"),
+    dict(b=2, n=12, f=7, kind="constant"), dict(b=3, n=1, f=5),
+    dict(b=3, n=33, f=75), dict(b=2, n=128, f=75, kind="molecule"),
+    dict(b=2, n=128, f=40)]
 
 
 def log(phase: str, **kv) -> None:
@@ -396,10 +445,10 @@ def profile_call(fn, **labels) -> None:
         top_host_ms=[(k[:40], round(v / 1e3, 4)) for k, v in top_host])
 
 
-def retrieve_phases(dev, flush, profile: bool) -> dict:
+def retrieve_phases(dev, flush, profile: bool) -> tuple:
     """The two-tower ``retrieval_cand`` path at FULL width, its kernel
     check, the counted requests, ``serve_p99`` and the CPU parity; returns
-    filtered_topk's record."""
+    filtered_topk's record and the model."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.two_tower_retrieval import TOPK
@@ -407,8 +456,6 @@ def retrieve_phases(dev, flush, profile: bool) -> dict:
     from repro_torch.core import (Equals, compile_predicates,
                                   evaluate_program, pack_columns, regex_aux)
     from repro_torch.kernels.filtered_topk import filtered_topk_cuda
-    from repro_torch.kernels.gather_distance import gather_distance_cuda
-    from repro_torch.kernels.neighbor_expand import neighbor_expand_cuda
     from repro_torch.models.recsys import TwoTower, set_two_tower_params
 
     arch = get_arch("two-tower-retrieval")
@@ -481,8 +528,8 @@ def retrieve_phases(dev, flush, profile: bool) -> dict:
     for i in range(WARMUP_REQUESTS):
         request(i)
     torch.cuda.synchronize()
-    for fn in (filtered_topk_cuda, gather_distance_cuda,
-               neighbor_expand_cuda):
+    counters = all_launchers()
+    for fn in counters:
         fn.launches = 0
     results, seconds = [], []
     for i in range(RETRIEVE_REQUESTS):
@@ -490,7 +537,7 @@ def retrieve_phases(dev, flush, profile: bool) -> dict:
         seconds.append(secs)
         results.append(res)
     launches = filtered_topk_cuda.launches
-    others = gather_distance_cuda.launches + neighbor_expand_cuda.launches
+    others = sum(fn.launches for fn in counters) - launches
     ms, mask_ms, step_ms = (np.array(v) * 1e3 for v in zip(*seconds))
     log("retrieve", requests=RETRIEVE_REQUESTS,
         p50_ms=f"{np.percentile(ms, 50):.4f}",
@@ -566,15 +613,438 @@ def retrieve_phases(dev, flush, profile: bool) -> dict:
     rec.update(launches=launches, name="filtered_topk", route="cuda",
                source="src/repro_torch/csrc/filtered_topk.cu",
                replaces="src/repro/kernels/filtered_topk/kernel.py:71")
+    return rec, model
+
+
+def molecule_graphs(b, n, d_in, seed, min_nodes=None, undirected_edges=32):
+    """(adj (b, n, n), feats (b, n, d_in)) float32 numpy: molecule-like
+    graphs padded to n nodes, as tests/torch_parity.py draws them.  Each
+    has between ``min_nodes`` (n // 3) and n real nodes joined by a random
+    spanning tree plus random ring closures up to ``undirected_edges``
+    edges, symmetric, no self-loops; real nodes get normal features,
+    padding nodes zeros and no edges."""
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((b, n, n), np.float32)
+    feats = np.zeros((b, n, d_in), np.float32)
+    lo = max(1, n // 3 if min_nodes is None else min_nodes)
+    for g in range(b):
+        k = int(rng.integers(lo, n + 1))
+        for v in range(1, k):
+            u = int(rng.integers(0, v))
+            adj[g, u, v] = adj[g, v, u] = 1.0
+        iu, ju = np.triu_indices(k, 1)
+        free = np.nonzero(adj[g, iu, ju] == 0)[0]
+        extra = min(len(free), max(0, undirected_edges - (k - 1)))
+        pick = rng.choice(free, size=extra, replace=False)
+        adj[g, iu[pick], ju[pick]] = adj[g, ju[pick], iu[pick]] = 1.0
+        feats[g, :k] = rng.normal(size=(k, d_in))
+    return adj, feats
+
+
+def pna_inputs(b, n, f, kind="random", seed=0):
+    """(adj, feats) numpy of a pna_aggregate edge case, as
+    tests/test_torch_pna_aggregate.py draws them."""
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(b, n, f)).astype(np.float32)
+    if kind == "random":
+        adj = (rng.random((b, n, n)) < 0.3).astype(np.float32)
+    elif kind == "zero":                 # every node isolated
+        adj = np.zeros((b, n, n), np.float32)
+    elif kind == "full":                 # complete, with self-loops
+        adj = np.ones((b, n, n), np.float32)
+    elif kind == "constant":             # std cancellation: equal values
+        adj = (rng.random((b, n, n)) < 0.5).astype(np.float32)
+        feats = np.full((b, n, f), 1.7, np.float32)
+    elif kind == "molecule":             # padded with isolated nodes
+        adj, feats = molecule_graphs(b, n, f, seed, min_nodes=n // 2)
+    else:
+        raise ValueError(kind)
+    return adj, feats
+
+
+def assert_pna_blocks(got, want, f: int, what: str) -> float:
+    """``[mean | max | min | std]`` against the plain version: max and min
+    identical, mean within rtol 1e-5 / atol 1e-6 (sums in another order),
+    std within atol 2e-3 (the reference's tolerance for the block: its
+    ssq / cnt - mean^2 cancels, up to ~sqrt(eps) |h| for a node of degree
+    1).  Returns the largest |err|."""
+    import torch
+    got, want = got.cpu(), want.cpu()
+    mean, mx, mn, sd = (slice(k * f, (k + 1) * f) for k in range(4))
+    if not (got.shape == want.shape
+            and torch.equal(got[..., mx], want[..., mx])
+            and torch.equal(got[..., mn], want[..., mn])
+            and torch.allclose(got[..., mean], want[..., mean], rtol=1e-5,
+                               atol=1e-6)
+            and bool(((got[..., sd] - want[..., sd]).abs() <= 2e-3).all())):
+        raise AssertionError(f"{what}: disagrees with the plain version")
+    return float((got - want).abs().max())
+
+
+def pna_aggregate_bound(adj, feats) -> tuple:
+    """Bytes: adj and feats read once, the (B, N, 4F) output written once.
+    Operations: 7 per (edge, feature) of this adjacency (h^2, two fused
+    multiply-adds, max, min)."""
+    b, n, f = feats.shape
+    byts = 4 * (adj.numel() + feats.numel() + b * n * 4 * f)
+    return bound(byts, 7 * int((adj > 0).sum()) * f)
+
+
+def measure_pna_aggregate(adj, feats, flush, what: str) -> dict:
+    """Kernel vs plain version on the card, then both timed with a cold
+    L2.  No PyTorch call computes the function: no library figure."""
+    import torch
+    from repro_torch.kernels.pna_aggregate import (pna_aggregate_cuda,
+                                                   pna_aggregate_ref)
+    got = pna_aggregate_cuda(adj, feats)
+    want = pna_aggregate_ref(adj, feats)
+    torch.cuda.synchronize()
+    err = assert_pna_blocks(got, want, feats.shape[2], what)
+    del got, want
+    b, n, f = feats.shape
+    bound_ms, bound_by = pna_aggregate_bound(adj, feats)
+    rec = dict(
+        shape=f"adj({b},{n},{n}) feats({b},{n},{f}) "
+              f"edges={int((adj > 0).sum())}",
+        max_abs_err=err,
+        ms=time_ms(lambda: pna_aggregate_cuda(adj, feats), ITERS, flush),
+        plain_ms=time_ms(lambda: pna_aggregate_ref(adj, feats), ITERS // 5,
+                         flush),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        library_calls="none (no PyTorch call computes it)")
+    log("kernels", kernel="pna_aggregate", **{
+        key: repr(v) if isinstance(v, str) else v for key, v in rec.items()})
     return rec
+
+
+def pna_phases(dev, flush, profile: bool) -> dict:
+    """PNA's dense-batched inference at the ``molecule`` shape: the
+    kernel's checks and times, the counted requests and the CPU parity;
+    returns pna_aggregate's record."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.pna import PNA_SHAPES
+    from repro_torch.kernels.pna_aggregate import (pna_aggregate_cuda,
+                                                   pna_aggregate_ref)
+    from repro_torch.models.gnn import PNA, forward_dense, set_pna_params
+
+    worst = 0.0
+    for ci, case in enumerate(PNA_EDGE_CASES):
+        adj, feats = (torch.from_numpy(a).to(dev)
+                      for a in pna_inputs(**case, seed=ci))
+        got = pna_aggregate_cuda(adj, feats)
+        want = pna_aggregate_ref(adj, feats)
+        torch.cuda.synchronize()
+        worst = max(worst, assert_pna_blocks(got, want, case["f"],
+                                             f"pna_aggregate {case}"))
+    try:
+        pna_aggregate_cuda(adj, feats.clone().requires_grad_())
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("pna_aggregate_cuda ran under autograd without "
+                             "a backward")
+    log("kernels", kernel="pna_aggregate", edge_cases=len(PNA_EDGE_CASES),
+        max_abs_err=worst, autograd_raises=True)
+
+    arch = get_arch("pna")
+    cfg = arch.config(shape="molecule")
+    spec = PNA_SHAPES["molecule"]
+    b, n = spec["batch"], spec["n_nodes"]
+    t0 = time.perf_counter()
+    model = arch.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    adj_np, feats_np = molecule_graphs(PNA_REQUESTS * b, n, cfg.d_in, seed=4)
+    data_s = time.perf_counter() - t0
+    adj = torch.from_numpy(adj_np).to(dev).view(PNA_REQUESTS, b, n, n)
+    feats = torch.from_numpy(feats_np).to(dev).view(PNA_REQUESTS, b, n,
+                                                    cfg.d_in)
+    log("pna", layers=cfg.n_layers, d_in=cfg.d_in, d_hidden=cfg.d_hidden,
+        classes=cfg.n_classes, batch=b, n_nodes=n, requests=PNA_REQUESTS,
+        directed_edges_per_graph=float(adj_np.sum() / len(adj_np)),
+        real_nodes_per_graph=float((np.abs(feats_np).sum(-1) > 0).sum()
+                                   / len(adj_np)),
+        init_s=f"{init_s:.3f}", graphs_s=f"{data_s:.3f}")
+
+    # the kernel at the path's shape (layer 0's messages of request 0) and
+    # at the bulk shape (the requests' graphs, twice over)
+    def messages(f):
+        return torch.relu(f @ model.enc) @ model.layers[0].w_msg
+
+    rec = measure_pna_aggregate(adj[0], messages(feats[0]), flush,
+                                "pna_aggregate path shape")
+    reps = PNA_BULK_GRAPHS // (PNA_REQUESTS * b)
+    bulk = measure_pna_aggregate(
+        adj.reshape(-1, n, n).repeat(reps, 1, 1),
+        messages(feats.reshape(-1, n, cfg.d_in)).repeat(reps, 1, 1), flush,
+        "pna_aggregate bulk shape")
+
+    # the main path: counters zeroed just before the requests, read after
+    def request(r):
+        return forward_dense(cfg, model, feats[r], adj[r])
+
+    for r in range(PNA_WARMUP):
+        request(r)
+    torch.cuda.synchronize()
+    counters = all_launchers()
+    for fn in counters:
+        fn.launches = 0
+    logits, seconds = [], []
+    for r in range(PNA_REQUESTS):
+        t0 = time.perf_counter()
+        out = request(r)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        logits.append(out)
+    launches = pna_aggregate_cuda.launches
+    others = sum(fn.launches for fn in counters) - launches
+    ms = np.array(seconds) * 1e3
+    log("pna", requests=PNA_REQUESTS, graphs_per_request=b,
+        p50_ms=f"{np.percentile(ms, 50):.4f}",
+        p99_ms=f"{np.percentile(ms, 99):.4f}",
+        graphs_per_s=f"{PNA_REQUESTS * b / ms.sum() * 1e3:.1f}",
+        request_ms=[round(float(v), 3) for v in ms],
+        pna_aggregate_launches=launches, other_kernel_launches=others)
+    if launches != cfg.n_layers * PNA_REQUESTS:
+        raise AssertionError(f"pna_aggregate launched {launches} times in "
+                             f"{PNA_REQUESTS} requests of {cfg.n_layers} "
+                             "layers")
+    for out in logits:
+        if out.shape != (b, cfg.n_classes) or not bool(
+                torch.isfinite(out).all()):
+            raise AssertionError("PNA logits not finite of shape "
+                                 f"({b}, {cfg.n_classes})")
+    if profile:
+        profile_call(lambda: request(0), path="pna_molecule")
+
+    # parity: the same requests on a CPU copy (plain versions)
+    cpu = set_pna_params(PNA(cfg), model.enc.cpu(), model.dec.cpu(),
+                         [(lp.w_msg.cpu(), lp.w_upd.cpu())
+                          for lp in model.layers])
+    err = 0.0
+    for r in range(PNA_PARITY):
+        want = forward_dense(cfg, cpu, feats[r].cpu(), adj[r].cpu())
+        e = float((logits[r].cpu() - want).abs().max())
+        if not e <= PNA_LOGITS_ATOL:
+            raise AssertionError(f"PNA request {r}: card vs CPU logits "
+                                 f"differ by {e}")
+        err = max(err, e)
+    log("parity", path="pna_molecule", requests=PNA_PARITY,
+        max_abs_err=err, atol=PNA_LOGITS_ATOL)
+    rec.update(launches=launches, name="pna_aggregate", route="cuda",
+               source="src/repro_torch/csrc/pna_aggregate.cu",
+               replaces="src/repro/kernels/pna_aggregate/kernel.py:46",
+               kernel_ms=rec["ms"], other_shapes=[bulk])
+    return rec
+
+
+def bag_inputs(b, l, v, d, kind="random", seed=0):
+    """(ids, table, upstream grad) numpy of an embedding_bag edge case, as
+    tests/test_torch_embedding_bag.py draws them."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-1, v, size=(b, l))
+    if kind == "padding":                 # every bag empty
+        ids = np.full((b, l), -1)
+    elif kind == "clip":                  # ids >= V read row V-1, counted
+        ids = rng.integers(-1, v + 5, size=(b, l))
+        ids[0, :] = v + 2
+    elif kind == "dup":                   # repeated ids inside a bag
+        ids = rng.integers(0, 3, size=(b, l))
+    elif kind != "random":
+        raise ValueError(kind)
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    g = rng.normal(size=(b, d)).astype(np.float32)
+    return ids.astype(np.int32), table, g
+
+
+def assert_bag_close(got, want, what: str) -> float:
+    """Within rtol / atol 1e-5 (the rows of a bag, or the gradient's
+    scatter-adds, in another order); returns the largest |err|."""
+    import torch
+    got, want = got.detach().cpu(), want.detach().cpu()
+    if got.shape != want.shape or not torch.allclose(got, want, **BAG_TOL):
+        raise AssertionError(f"{what}: disagrees with the plain version")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def embedding_bag_bound(ids, table, mode: str) -> tuple:
+    """Bytes: each distinct row the valid ids name (clipped) read once, the
+    ids, and the (B, D) output written once.  Operations: one add per
+    valid id and column, plus a division per output under mean."""
+    v, d = table.shape
+    valid = ids[ids >= 0]
+    rows = int(valid.clamp(max=v - 1).unique().numel())
+    byts = rows * d * 4 + ids.numel() * 4 + ids.shape[0] * d * 4
+    ops = int(valid.numel()) * d + (ids.shape[0] * d if mode == "mean" else 0)
+    return bound(byts, ops)
+
+
+def measure_embedding_bag(ids, table, mode: str, flush) -> dict:
+    """Kernel vs plain version on the card, then the kernel, the plain
+    version and (for sum) the library yardstick timed with a cold L2."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
+                                                   embedding_bag_ref)
+    b, l = ids.shape
+    v, d = table.shape
+    want = embedding_bag_ref(ids, table, mode)
+    err = assert_bag_close(embedding_bag_cuda(ids, table, mode), want,
+                           f"embedding_bag ({b}, {l}) {mode}")
+    bound_ms, bound_by = embedding_bag_bound(ids, table, mode)
+    rec = dict(
+        shape=f"ids({b},{l}) table({v},{d}) {mode} "
+              f"valid={float((ids >= 0).float().mean()):.4f}",
+        max_abs_err=err,
+        ms=time_ms(lambda: embedding_bag_cuda(ids, table, mode), ITERS,
+                   flush),
+        plain_ms=time_ms(lambda: embedding_bag_ref(ids, table, mode),
+                         ITERS // 5, flush),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        library_calls="none for mean: F.embedding_bag's padding_idx drops "
+                      "every id of a real row, not the -1 slots")
+    if mode == "sum":
+        safe, w = ids.clamp(0, v - 1).long(), (ids >= 0).float()
+
+        def library():
+            return F.embedding_bag(safe, table, mode="sum",
+                                   per_sample_weights=w)
+        rec.update(
+            library_ms=time_ms(library, ITERS // 5, flush),
+            library_max_abs_err=assert_bag_close(library(), want,
+                                                 "F.embedding_bag"),
+            library_calls="F.embedding_bag(ids.clamp(0, V-1), table, "
+                          "mode='sum', per_sample_weights=(ids >= 0)"
+                          ".float()): 1 call")
+    log("kernels", kernel="embedding_bag", **{
+        key: repr(v) if isinstance(v, str) else v for key, v in rec.items()})
+    return rec
+
+
+def bag_phases(dev, flush, table) -> dict:
+    """The embedding_bag op over ``table`` (the two-tower FULL user
+    table): the kernel's checks and times, the counted forward and
+    gradient at the recsys shapes, and the CPU parity of the largest
+    shape; returns embedding_bag's record."""
+    import torch
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_cuda,
+                                                   embedding_bag_ref)
+    from repro_torch.kernels.embedding_bag.ref import MODES
+
+    worst = 0.0
+    for ci, case in enumerate(BAG_EDGE_CASES):
+        ids, tab, _ = (torch.from_numpy(a).to(dev)
+                       for a in bag_inputs(**case, seed=ci))
+        for mode in MODES:
+            worst = max(worst, assert_bag_close(
+                embedding_bag_cuda(ids, tab, mode),
+                embedding_bag_ref(ids, tab, mode),
+                f"embedding_bag {case} {mode}"))
+    for bad in ((ids.long(), tab), (ids, tab.double())):
+        try:
+            embedding_bag_cuda(*bad)
+        except TypeError:
+            pass
+        else:
+            raise AssertionError("embedding_bag_cuda took "
+                                 f"{bad[0].dtype} ids, {bad[1].dtype} table")
+    log("kernels", kernel="embedding_bag",
+        edge_cases=len(BAG_EDGE_CASES) * len(MODES), max_abs_err=worst,
+        other_dtypes_raise=True)
+
+    v, d = table.shape
+    rng = np.random.default_rng(5)
+    inputs = []
+    for b, l in BAG_SHAPES:
+        ids = rng.integers(0, v, size=(b, l))
+        ids[rng.random((b, l)) < BAG_PAD] = -1
+        inputs.append(torch.as_tensor(ids.astype(np.int32), device=dev))
+    recs = [measure_embedding_bag(ids, table, mode, flush)
+            for ids in inputs for mode in MODES]
+
+    # the main path: the op, forward and gradient, counters zeroed just
+    # before and read just after; the largest shape against a CPU copy
+    leaf = table.detach().requires_grad_()      # the same storage
+    gen = torch.Generator(device=dev).manual_seed(6)
+    grads_in = [torch.randn((ids.shape[0], d), generator=gen, device=dev)
+                for ids in inputs]
+    table_cpu = table.cpu()
+    # warm-up: the first backward allocates the 4.29 GB gradient
+    t0 = time.perf_counter()
+    torch.autograd.grad(embedding_bag(inputs[0], leaf), leaf, grads_in[0])
+    torch.cuda.synchronize()
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+    counters = all_launchers()
+    for fn in counters:
+        fn.launches = 0
+    timings, kept = [], []
+    for ids, g in zip(inputs, grads_in):
+        for mode in MODES:
+            t0 = time.perf_counter()
+            out = embedding_bag(ids, leaf, mode)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (grad,) = torch.autograd.grad(out, leaf, g)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            timings.append((tuple(ids.shape), mode, round((t1 - t0) * 1e3, 4),
+                            round((t2 - t1) * 1e3, 4)))
+            if ids is inputs[-1]:
+                kept.append((ids, g, mode, out, grad))
+    launches = embedding_bag_cuda.launches
+    others = sum(fn.launches for fn in counters) - launches
+    log("bag", table=(v, d), shapes=BAG_SHAPES, padding=BAG_PAD,
+        warmup_fwd_bwd_ms=round(warmup_ms, 3), op_fwd_bwd_ms=timings,
+        embedding_bag_launches=launches,
+        other_kernel_launches=others)
+    if launches != len(BAG_SHAPES) * len(MODES):
+        raise AssertionError(f"embedding_bag launched {launches} times in "
+                             f"{len(BAG_SHAPES) * len(MODES)} op calls")
+    parity_err = 0.0
+    for ids, g, mode, out, grad in kept:
+        tc = table_cpu.detach().requires_grad_()
+        out_h = embedding_bag(ids.cpu(), tc, mode)
+        (grad_h,) = torch.autograd.grad(out_h, tc, g.cpu())
+        rows = ids[ids >= 0].clamp(max=v - 1).unique().long()
+        what = f"embedding_bag {tuple(ids.shape)} {mode} card vs CPU"
+        parity_err = max(parity_err, assert_bag_close(out, out_h, what),
+                         assert_bag_close(grad[rows], grad_h[rows.cpu()],
+                                          what + " gradient"))
+        if bool(grad.index_fill_(0, rows, 0.0).any()):
+            raise AssertionError(f"{what}: gradient outside the bags' rows")
+    del kept
+    log("parity", path="embedding_bag", shape=tuple(inputs[-1].shape),
+        modes=MODES, max_abs_err=parity_err)
+    rec = recs[0]
+    rec.update(launches=launches, name="embedding_bag", route="cuda",
+               source="src/repro_torch/csrc/embedding_bag.cu",
+               replaces="src/repro/kernels/embedding_bag/kernel.py:56",
+               kernel_ms=rec["ms"], other_shapes=recs[1:])
+    return rec
+
+
+def all_launchers() -> list:
+    """The launch-counted wrapper of every kernel of the port."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    from repro_torch.kernels.filtered_topk import filtered_topk_cuda
+    from repro_torch.kernels.gather_distance import gather_distance_cuda
+    from repro_torch.kernels.neighbor_expand import neighbor_expand_cuda
+    from repro_torch.kernels.pna_aggregate import pna_aggregate_cuda
+    return [embedding_bag_cuda, filtered_topk_cuda, gather_distance_cuda,
+            neighbor_expand_cuda, pna_aggregate_cuda]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one request per route, and one "
-                         "retrieval request, with torch.profiler and print "
-                         "where the device time goes")
+                    help="also trace one request per route, one "
+                         "retrieval request and one PNA request with "
+                         "torch.profiler and print where the device time "
+                         "goes")
     args = ap.parse_args(argv)
 
     import torch
@@ -800,10 +1270,14 @@ def main(argv=None) -> int:
                                   "l2", "graph route card vs CPU")
     log("parity", queries=len(gsel), near_ties=ties, max_abs_err=err)
 
-    rec = retrieve_phases(dev, flush, args.profile)
+    rec, model = retrieve_phases(dev, flush, args.profile)
     rec["kernel_ms"] = rec["ms"]
     rec["other_shapes"] = [topk_lcps]
     records.append(rec)
+    records.append(bag_phases(dev, flush, model.user_emb))
+    del model
+    torch.cuda.empty_cache()
+    records.append(pna_phases(dev, flush, args.profile))
 
     log("total", seconds=f"{time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": records}))

@@ -6,6 +6,7 @@ from __future__ import annotations
 import importlib
 
 _MODULES = {
+    "pna": "repro_torch.configs.pna",
     "two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
 }
 

@@ -12,12 +12,11 @@ Shapes (as in the reference):
 """
 from __future__ import annotations
 
-import dataclasses
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
-from .lm_common import CellDef
+from .lm_common import CellDef, TensorSpec, param_specs
 
 RECSYS_SHAPES: Dict[str, Dict] = {
     "train_batch": dict(kind="train", batch=65536),
@@ -37,14 +36,6 @@ REDUCED_RECSYS_SHAPES: Dict[str, Dict] = {
 }
 
 
-@dataclasses.dataclass(frozen=True)
-class TensorSpec:
-    """Shape and dtype of a tensor that is not made (the counterpart of
-    ``jax.ShapeDtypeStruct``)."""
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
-
-
 class RecsysArchBase:
     family = "recsys"
 
@@ -58,5 +49,4 @@ class RecsysArchBase:
 
     def abstract_params(self, cfg) -> Dict[str, TensorSpec]:
         """Parameter name -> :class:`TensorSpec`, from :meth:`module`."""
-        return {name: TensorSpec(tuple(p.shape), p.dtype)
-                for name, p in self.module(cfg).named_parameters()}
+        return param_specs(self.module(cfg))

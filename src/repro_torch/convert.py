@@ -16,6 +16,7 @@ import torch
 from repro_torch.core.graph import LayeredGraph
 from repro_torch.core.predicates import AttributeTable
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.gnn import PNA, PNAConfig, set_pna_params
 from repro_torch.models.recsys import (TwoTower, TwoTowerConfig,
                                        set_two_tower_params)
 
@@ -82,3 +83,22 @@ def two_tower_params_from_arrays(tree: Mapping, cfg: TwoTowerConfig,
     return set_two_tower_params(TwoTower(cfg),
                                 t(tree["user_emb"]), t(tree["item_emb"]),
                                 towers)
+
+
+def pna_params_from_arrays(tree: Mapping, cfg: PNAConfig,
+                           device: DeviceLike = "cuda") -> PNA:
+    """A :class:`PNA` that computes what the reference's ``init_pna``
+    parameter tree computes.
+
+    ``tree`` has the reference's keys with numpy leaves: ``enc``
+    (d_in, d_hidden), ``dec`` (d_hidden, C) and ``layers``, a list of
+    ``{"w_msg", "w_upd"}``; the layouts are the same in both packages."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            device=dev, dtype=cfg.dtype)
+
+    return set_pna_params(PNA(cfg), t(tree["enc"]), t(tree["dec"]),
+                          [(t(lp["w_msg"]), t(lp["w_upd"]))
+                           for lp in tree["layers"]])

@@ -30,17 +30,10 @@ def filtered_topk_cuda(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     call that launches the kernels."""
     if metric not in ("l2", "ip"):
         raise ValueError(metric)
-    for name, t, dt in (("q", q, torch.float32), ("x", x, torch.float32),
-                        ("mask", mask, torch.bool)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"filtered_topk_cuda: {name} on {t.device}, "
-                             f"expected {q.device} (cuda)")
-        if t.dtype != dt:
-            raise TypeError(f"filtered_topk_cuda: {name} is {t.dtype}, "
-                            f"expected {dt}")
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"filtered_topk_cuda: {name} must be a "
-                             "contiguous 2-D tensor")
+    loader.check_tensors("filtered_topk_cuda", q.device,
+                         [("q", q, torch.float32, 2),
+                          ("x", x, torch.float32, 2),
+                          ("mask", mask, torch.bool, 2)])
     b, d = q.shape
     n = x.shape[0]
     if x.shape[1] != d or mask.shape != (b, n):

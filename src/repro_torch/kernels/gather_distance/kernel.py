@@ -20,17 +20,10 @@ def gather_distance_cuda(ids: torch.Tensor, q: torch.Tensor, x: torch.Tensor,
     ``gather_distance_cuda.launches`` per kernel launch."""
     if metric not in ("l2", "ip"):
         raise ValueError(metric)
-    for name, t, dt in (("ids", ids, torch.int32), ("q", q, torch.float32),
-                        ("x", x, torch.float32)):
-        if t.device.type != "cuda" or t.device != ids.device:
-            raise ValueError(f"gather_distance_cuda: {name} on {t.device}, "
-                             f"expected {ids.device} (cuda)")
-        if t.dtype != dt:
-            raise TypeError(f"gather_distance_cuda: {name} is {t.dtype}, "
-                            f"expected {dt}")
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"gather_distance_cuda: {name} must be a "
-                             "contiguous 2-D tensor")
+    loader.check_tensors("gather_distance_cuda", ids.device,
+                         [("ids", ids, torch.int32, 2),
+                          ("q", q, torch.float32, 2),
+                          ("x", x, torch.float32, 2)])
     b, m = ids.shape
     n, d = x.shape
     if q.shape != (b, d):

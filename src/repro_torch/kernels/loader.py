@@ -26,7 +26,8 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
-SOURCES = ("filtered_topk.cu", "gather_distance.cu", "neighbor_expand.cu")
+SOURCES = ("embedding_bag.cu", "filtered_topk.cu", "gather_distance.cu",
+           "neighbor_expand.cu", "pna_aggregate.cu")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -112,8 +113,28 @@ def library() -> ctypes.CDLL:
             lib.repro_filtered_topk.restype = i
             lib.repro_filtered_topk_workspace.argtypes = [i, i, i]
             lib.repro_filtered_topk_workspace.restype = ctypes.c_longlong
+            lib.repro_pna_aggregate.argtypes = [p, p, p, i, i, i, p]
+            lib.repro_pna_aggregate.restype = i
+            lib.repro_embedding_bag.argtypes = [p, p, p, i, i, i, i, i, p]
+            lib.repro_embedding_bag.restype = i
             _LIB = lib
         return _LIB
+
+
+def check_tensors(fn: str, dev, named) -> None:
+    """Raise unless each ``(name, tensor, dtype, ndim)`` of ``named`` is a
+    contiguous ``ndim``-D tensor of ``dtype`` on the CUDA device ``dev``:
+    ``ValueError`` for the device, the rank or the layout, ``TypeError``
+    for the dtype (no cast)."""
+    for name, t, dt, nd in named:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{fn}: {name} on {t.device}, expected {dev} "
+                             "(cuda)")
+        if t.dtype != dt:
+            raise TypeError(f"{fn}: {name} is {t.dtype}, expected {dt}")
+        if t.dim() != nd or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous {nd}-D "
+                             "tensor")
 
 
 def check(rc: int, what: str) -> None:

@@ -42,16 +42,7 @@ def neighbor_expand_cuda(row: torch.Tensor, nbr_table: torch.Tensor,
         named.append(("pass_mask", pass_mask, torch.bool, 2))
     if visited is not None:
         named.append(("visited", visited, torch.bool, 2))
-    for name, t, dt, nd in named:
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"neighbor_expand_cuda: {name} on {t.device}, "
-                             f"expected {dev} (cuda)")
-        if t.dtype != dt:
-            raise TypeError(f"neighbor_expand_cuda: {name} is {t.dtype}, "
-                            f"expected {dt}")
-        if t.dim() != nd or not t.is_contiguous():
-            raise ValueError(f"neighbor_expand_cuda: {name} must be a "
-                             f"contiguous {nd}-D tensor")
+    loader.check_tensors("neighbor_expand_cuda", dev, named)
     b, cap = row.shape
     n = pos.shape[0]
     n_l = nbr_table.shape[0]

@@ -1,0 +1,60 @@
+"""Plain PyTorch versions of the PNA multi-aggregator (dense and segment
+forms), twins of ``repro/kernels/pna_aggregate/ref.py``.
+
+Both return ``[mean | max | min | std]`` along the last axis.  The
+variance is the reference's ``max(ssq / denom - mean^2, 0)`` (not
+Welford), so ``std = sqrt(var + 1e-12)`` inherits its cancellation: for a
+node whose neighbours carry nearly equal values it is sensitive to the
+order of summation, up to about sqrt(eps) |h|.  A node with no
+in-neighbour gets 0 for mean, max and min and 1e-6 for std.
+"""
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def _moments(cnt: Tensor, s: Tensor, ssq: Tensor):
+    denom = cnt.clamp_min(1.0)
+    mean = s / denom
+    var = (ssq / denom - mean * mean).clamp_min(0.0)
+    return mean, torch.sqrt(var + 1e-12)
+
+
+def pna_aggregate_ref(adj: Tensor, feats: Tensor) -> Tensor:
+    """adj (B, N, N) in {0, 1}, row = destination, column = source;
+    feats (B, N, F) -> (B, N, 4F)."""
+    cnt = adj.sum(dim=2, keepdim=True)
+    s = torch.einsum("bij,bjf->bif", adj, feats)
+    ssq = torch.einsum("bij,bjf->bif", adj, feats * feats)
+    mean, std = _moments(cnt, s, ssq)
+    m = adj[:, :, :, None] > 0
+    h = feats[:, None, :, :]
+    hmax = torch.where(m, h, -1e30).amax(dim=2)
+    hmin = torch.where(m, h, 1e30).amin(dim=2)
+    has = cnt > 0
+    hmax = torch.where(has, hmax, 0.0)
+    hmin = torch.where(has, hmin, 0.0)
+    return torch.cat([mean, hmax, hmin, std], dim=2)
+
+
+def pna_aggregate_segment_ref(messages: Tensor, dst: Tensor,
+                              num_nodes: int) -> Tensor:
+    """Sparse form: messages (E, F) scattered to dst (E,) -> (N, 4F)."""
+    e, f = messages.shape
+    idx = dst.long()
+    cnt = messages.new_zeros(num_nodes).index_add_(
+        0, idx, messages.new_ones(e))[:, None]
+    s = messages.new_zeros((num_nodes, f)).index_add_(0, idx, messages)
+    ssq = messages.new_zeros((num_nodes, f)).index_add_(
+        0, idx, messages * messages)
+    mean, std = _moments(cnt, s, ssq)
+    idx2 = idx[:, None].expand(e, f)
+    zeros = messages.new_zeros((num_nodes, f))
+    hmax = zeros.scatter_reduce(0, idx2, messages, "amax", include_self=False)
+    hmin = zeros.scatter_reduce(0, idx2, messages, "amin", include_self=False)
+    has = cnt > 0
+    hmax = torch.where(has, hmax, 0.0)
+    hmin = torch.where(has, hmin, 0.0)
+    return torch.cat([mean, hmax, hmin, std], dim=1)

@@ -8,7 +8,7 @@ so the parity tests carry the reference's parameters across with
 from __future__ import annotations
 
 import math
-from typing import Any, Optional
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -42,3 +42,17 @@ def param_count(params: Any) -> int:
     if isinstance(params, (list, tuple)):
         return sum(param_count(v) for v in params)
     return math.prod(params.shape)
+
+
+def set_params(slots: Sequence[Tuple[nn.Module, str, torch.Tensor]]) -> None:
+    """Make each tensor of ``(owner, name, tensor)`` the parameter
+    ``owner.name`` as it is, without a copy and without grad, after
+    checking that every one has the shape and dtype of the parameter it
+    replaces (so a module built on ``meta`` is filled all or nothing)."""
+    for owner, name, t in slots:
+        old = getattr(owner, name)
+        if old.shape != t.shape or old.dtype != t.dtype:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, expected "
+                             f"{tuple(old.shape)} {old.dtype}")
+    for owner, name, t in slots:
+        setattr(owner, name, nn.Parameter(t, requires_grad=False))

@@ -20,7 +20,7 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 
-from .common import dense_init, embed_init
+from .common import dense_init, embed_init, set_params
 
 Tensor = torch.Tensor
 
@@ -124,13 +124,7 @@ def set_two_tower_params(model: TwoTower, user_emb: Tensor, item_emb: Tensor,
     for tower, pairs in zip((model.user_tower, model.item_tower), layers):
         for lin, (w, b) in zip(tower, pairs):
             slots += [(lin, "weight", w), (lin, "bias", b)]
-    for owner, name, t in slots:
-        old = getattr(owner, name)
-        if old.shape != t.shape or old.dtype != t.dtype:
-            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, expected "
-                             f"{tuple(old.shape)} {old.dtype}")
-    for owner, name, t in slots:
-        setattr(owner, name, nn.Parameter(t, requires_grad=False))
+    set_params(slots)
     return model
 
 

@@ -16,16 +16,23 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs.pna import ARCH as PNA_ARCH
 from repro_torch.configs.two_tower_retrieval import REDUCED
-from repro_torch.convert import (graph_from_arrays, table_from_arrays,
+from repro_torch.convert import (graph_from_arrays, pna_params_from_arrays,
+                                 table_from_arrays,
                                  two_tower_params_from_arrays)
 from repro_torch.core import (AcornConfig, HybridIndex, sentinel_result)
 from repro_torch.data import make_lcps_dataset
 from repro_torch.kernels import loader
+from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.filtered_topk import filtered_topk_cuda
 from repro_torch.kernels.gather_distance import gather_distance_cuda
 from repro_torch.kernels.neighbor_expand import neighbor_expand_cuda
+from repro_torch.kernels.pna_aggregate import pna_aggregate_cuda
+from repro_torch.models.gnn import init_pna
 from repro_torch.models.recsys import init_two_tower
+
+PNA_REDUCED = PNA_ARCH.config(reduced=True, shape="molecule")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -78,6 +85,10 @@ ENTRY_POINTS = {
          "item_emb": np.zeros((REDUCED.n_items, REDUCED.embed_dim)),
          "user_tower": {"w": [], "b": []}, "item_tower": {"w": [], "b": []}},
         REDUCED),
+    "init_pna": lambda: init_pna(PNA_REDUCED),
+    "pna_params_from_arrays": lambda: pna_params_from_arrays(
+        {"enc": np.zeros((8, 16)), "dec": np.zeros((16, 2)),
+         "layers": []}, PNA_REDUCED),
 }
 
 
@@ -113,3 +124,7 @@ def test_cuda_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="cuda"):
         filtered_topk_cuda(torch.zeros((2, 8)), x,
                            torch.ones((2, 4), dtype=torch.bool), 2)
+    with pytest.raises(ValueError, match="cuda"):
+        pna_aggregate_cuda(torch.zeros((2, 4, 4)), torch.zeros((2, 4, 3)))
+    with pytest.raises(ValueError, match="cuda"):
+        embedding_bag_cuda(ids, x)

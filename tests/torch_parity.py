@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.convert import graph_from_arrays, table_from_arrays
+from repro_torch.convert import (graph_from_arrays, pna_params_from_arrays,
+                                 table_from_arrays)
 
 # relative width of a near tie in distance: two ids whose distances to the
 # query agree this closely may swap places between the packages (their
@@ -38,6 +39,38 @@ def port_table(t, device="cpu"):
         {k: np.asarray(v) for k, v in t.int_cols.items()},
         {k: np.asarray(v) for k, v in t.bitset_cols.items()},
         dict(t.str_cols), dict(t.n_keywords), device=device)
+
+
+def port_pna(params, cfg, device="cpu"):
+    """The port's ``PNA`` from a reference ``init_pna`` parameter tree."""
+    tree = {"enc": np.asarray(params["enc"]), "dec": np.asarray(params["dec"]),
+            "layers": [{k: np.asarray(v) for k, v in lp.items()}
+                       for lp in params["layers"]]}
+    return pna_params_from_arrays(tree, cfg, device=device)
+
+
+def molecule_graphs(b, n, d_in, seed, min_nodes=None, undirected_edges=32):
+    """(adj (b, n, n), feats (b, n, d_in)) float32 numpy: molecule-like
+    graphs padded to n nodes.  Each has between ``min_nodes`` (n // 3) and
+    n real nodes joined by a random spanning tree plus random ring
+    closures up to ``undirected_edges`` edges, symmetric, no self-loops;
+    real nodes get normal features, padding nodes zeros and no edges."""
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((b, n, n), np.float32)
+    feats = np.zeros((b, n, d_in), np.float32)
+    lo = max(1, n // 3 if min_nodes is None else min_nodes)
+    for g in range(b):
+        k = int(rng.integers(lo, n + 1))
+        for v in range(1, k):
+            u = int(rng.integers(0, v))
+            adj[g, u, v] = adj[g, v, u] = 1.0
+        iu, ju = np.triu_indices(k, 1)
+        free = np.nonzero(adj[g, iu, ju] == 0)[0]
+        extra = min(len(free), max(0, undirected_edges - (k - 1)))
+        pick = rng.choice(free, size=extra, replace=False)
+        adj[g, iu[pick], ju[pick]] = adj[g, ju[pick], iu[pick]] = 1.0
+        feats[g, :k] = rng.normal(size=(k, d_in))
+    return adj, feats
 
 
 def assert_ids_match(ids_port, ids_ref, d_port, d_ref, x, xq, metric="l2",
