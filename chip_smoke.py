@@ -4,6 +4,9 @@
     python3 chip_smoke.py   # SIFT1M-shaped LCPS index (n = 1,000,000),
                             # two-tower retrieval_cand (n = 1,048,576),
                             # embedding_bag and PNA molecule inference
+    python3 chip_smoke.py --baseline DIR   # also time the gather_distance.cu
+                            # and neighbor_expand.cu in DIR (an earlier
+                            # version) in turns with the port's
 
 Phases, each printed on its own line:
 
@@ -16,7 +19,11 @@ Phases, each printed on its own line:
   kernels  each kernel against its plain PyTorch version on the card, at
            the search path's shapes (B = 256) on rows of the built graph:
            gather_distance within rtol 1e-5 / atol 1e-4 (fp32 sums run in
-           another order), neighbor_expand bit-identical, filtered_topk
+           another order) and +inf where the plain version has it, also at
+           ``GD_EDGE_CASES``; neighbor_expand bit-identical, also at
+           ``NE_EDGE_CASES``; the launch floor (a 1-element ``zero_()``
+           timed as the kernels are); both timed, with the lanes' stop
+           positions for neighbor_expand; filtered_topk
            (B = 256, k = 10, l2, the index's vectors and LCPS masks) with
            ids identical except at near ties and dists within rtol 1e-5 /
            atol max(1e-4, 1e-6 (|q|^2 + |x|^2)), and the same at
@@ -31,6 +38,11 @@ Phases, each printed on its own line:
   parity   16 graph-route queries through ``hybrid_search`` on the card
            (kernels) and on a CPU copy of the index (plain versions),
            compared as filtered_topk is against its plain version.
+  hops     one forced graph-route request with recording wrappers around
+           ``repro_torch.core.search``'s neighbor_expand and
+           gather_distance (removed after it): both kernels checked and
+           timed again on the arguments of level-0 hops ``HOPS``
+           (``other_shapes`` of their records).
   retrieve the two-tower arch's ``retrieval_cand`` step at its FULL width
            (4,194,304 users, 2,097,152 items, E = 256, towers
            1024-512-256): item embeddings of 1,048,576 candidates, a
@@ -151,6 +163,95 @@ PNA_EDGE_CASES = [
     dict(b=3, n=33, f=75), dict(b=2, n=128, f=75, kind="molecule"),
     dict(b=2, n=128, f=40)]
 
+# neighbor_expand's edge cases, the same as CARD_CASES in
+# tests/test_torch_neighbor_expand.py (case i is drawn with seed i by
+# expand_edge_inputs), each run with the pass mask and the visited set given
+# or None: ids that share hash slots, one id throughout a stream, lanes that
+# stop before m (all visited, nothing passes), m wider than a round (the
+# shared-memory opt-in), filter at the upper levels' cap = 384, two_hop at
+# acorn-1's cap = 64, an empty level, m_beta 0 and cap, and the path's shape
+# with duplicate-heavy 2-hop rows whose lanes stop past 1,024 positions
+NE_EDGE_CASES = [
+    dict(kind="collide", strategy="compress", cap=128, m=32, m_beta=64,
+         n=1 << 17),
+    dict(kind="repeat", strategy="compress", cap=128, m=32, m_beta=64),
+    dict(kind="repeat", strategy="two_hop", cap=64, m=32),
+    dict(kind="all_visited", strategy="compress", cap=128, m=32, m_beta=64),
+    dict(strategy="compress", cap=128, m=2000, m_beta=64, n=200_000,
+         p_pass=1.0, p_vis=0.05),
+    dict(strategy="filter", cap=384, m=32, p_pass=0.1),
+    dict(strategy="two_hop", cap=64, m=32, p_pass=1 / 12),
+    dict(strategy="compress", cap=128, m=32, m_beta=64, n_l=0),
+    dict(strategy="two_hop", cap=64, m=32, n_l=0),
+    dict(strategy="compress", cap=128, m=32, m_beta=0),
+    dict(strategy="compress", cap=128, m=32, m_beta=128),
+    dict(kind="path", strategy="compress", cap=128, m=32, m_beta=64,
+         p_pass=0.03),
+]
+# gather_distance's edge cases, the same as CARD_CASES in
+# tests/test_torch_gather_distance.py (case i is drawn with seed i by
+# gather_edge_inputs): d = 13 (scalar loads), all ids -1, ids >= n
+# (clipped), M not a multiple of a warp's 4 rows, B = 1, more row groups
+# than warps
+GD_EDGE_CASES = [
+    dict(b=5, m=12, n=40, d=16), dict(b=5, m=12, n=40, d=13),
+    dict(b=4, m=9, n=50, d=16, kind="invalid"),
+    dict(b=3, m=13, n=30, d=24, kind="clip"),
+    dict(b=1, m=32, n=100, d=128), dict(b=3, m=70, n=500, d=64)]
+# level-0 hops of one graph-route request whose arguments are captured
+HOPS = (1, 8, 32, 64)
+
+
+def fib_slot(ids, bits: int):
+    """The hash slot of each id in neighbor_expand.cu's dedup set of
+    2^bits slots (Fibonacci hashing), mirrored here to draw colliding ids."""
+    return ((ids.astype(np.uint64) * 0x9E3779B1) & 0xFFFFFFFF) >> (32 - bits)
+
+
+def expand_edge_inputs(strategy, cap, m, m_beta=0, kind="random", b=4,
+                       n=4000, n_l=None, p_pass=0.5, p_vis=0.1, seed=0):
+    """(row, tbl, pos, pm, vis) numpy arrays of a neighbor_expand edge
+    case, as tests/test_torch_neighbor_expand.py draws them (``strategy``,
+    ``m`` and ``m_beta`` are the call's)."""
+    rng = np.random.default_rng(seed)
+    n_l = n if n_l is None else n_l
+    level = rng.permutation(n)[:n_l]
+    pos = np.full(n, -1, np.int32)
+    pos[level] = np.arange(n_l, dtype=np.int32)
+    pool = np.arange(n)
+    if kind == "collide":   # two adjacent slots of the m = 32 set (4,096
+        slot = fib_slot(pool, 12)             # slots), and ids = 7 mod 4096
+        pool = np.concatenate([pool[(slot == 5) | (slot == 6)],
+                               pool[pool % 4096 == 7]])
+    elif kind == "path":    # 2-hop rows overlap: 1,500 ids fill the stream
+        pool = rng.choice(n, 1500, replace=False)
+    row, tbl = (np.where(rng.random(s) < 0.03, -1, rng.choice(pool, size=s))
+                .astype(np.int32) for s in ((b, cap), (n_l, cap)))
+    if kind == "repeat":    # one id throughout each lane's stream
+        x = rng.choice(level, size=b)
+        row[:] = x[:, None]
+        tbl[pos[x]] = x[:, None]
+    pm = rng.random((b, n)) < p_pass
+    vis = rng.random((b, n)) < p_vis
+    if kind in ("repeat", "all_visited"):
+        vis[0] = True           # lane 0: every id visited
+        pm[1] = False           # lane 1: nothing passes
+    return row, tbl, pos, pm, vis
+
+
+def gather_edge_inputs(b, m, n, d, kind="random", seed=0):
+    """(ids, q, x) numpy arrays of a gather_distance edge case, as
+    tests/test_torch_gather_distance.py draws them."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-1, n, size=(b, m)).astype(np.int32)
+    if kind == "invalid":
+        ids[:] = -1
+    elif kind == "clip":
+        ids[:, ::2] = rng.integers(n, n + 5, size=ids[:, ::2].shape)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    return ids, q, x
+
 
 def log(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
@@ -201,8 +302,10 @@ def gather_distance_bound(ids, q, x) -> tuple:
 
 
 def neighbor_expand_bound(row, tbl, pos, pm, vis, strategy, m, m_beta):
-    """Bytes this data needs before each lane's scan stops at its m-th
-    packed candidate, each input byte once: the 1-hop row entries the
+    """(bound ms, "bytes", stop): ``stop`` (B,) is each lane's stop
+    position, one past its m-th packed candidate (the stream's length where
+    fewer pack).  Bytes this data needs before each lane's scan stops there,
+    each input byte once: the 1-hop row entries the
     stream reached (head ids, and under 'compress' the tail ids), one pos
     lookup per expanded row the stream entered, the table entries of the
     present rows it reached, one pass-mask byte per distinct valid id
@@ -249,7 +352,244 @@ def neighbor_expand_bound(row, tbl, pos, pm, vis, strategy, m, m_beta):
         byts += int(ids_read.sum())
     if vis is not None:
         byts += int((ids_read & passing).sum())
-    return bound(byts, 0)
+    return (*bound(byts, 0), stop)
+
+
+def baseline_kernels(src_dir: str) -> tuple:
+    """An earlier ``gather_distance.cu`` and ``neighbor_expand.cu`` from
+    ``src_dir`` (the same C entry points, names and arguments), built with
+    the loader's flags into a library of their own and loaded beside the
+    port's; returns (gather_distance, neighbor_expand) callables that take
+    the launchers' arguments.  For timing a redesign against the kernels
+    it replaced in one run."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import loader
+    out = loader.BUILD_DIR / "baseline"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = loader._nvcc()
+    names = ("gather_distance", "neighbor_expand")
+    objs = [str(out / f"{nm}.o") for nm in names]
+    loader._run_all([[nvcc, *loader.NVCC_FLAGS, "-c",
+                      os.path.join(src_dir, f"{nm}.cu"), "-o", o]
+                     for nm, o in zip(names, objs)])
+    lib_path = str(out / "librepro_baseline.so")
+    loader._run_all([[nvcc, "-shared", *objs, "-o", lib_path]])
+    lib = ctypes.CDLL(lib_path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.repro_gather_distance.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.repro_gather_distance.restype = i
+    lib.repro_neighbor_expand.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                          i, i, p]
+    lib.repro_neighbor_expand.restype = i
+    strategies = {"filter": 0, "compress": 1, "two_hop": 2}
+
+    def gather(ids, q, x, metric):
+        out = torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
+        loader.check(lib.repro_gather_distance(
+            ids.data_ptr(), q.data_ptr(), x.data_ptr(), out.data_ptr(),
+            ids.shape[0], ids.shape[1], x.shape[0], x.shape[1],
+            int(metric == "ip"), torch.cuda.current_stream().cuda_stream),
+            "baseline gather_distance")
+        return out
+
+    def expand(row, tbl, pos, pm, vis, *, strategy, m, m_beta):
+        out = torch.empty((row.shape[0], m), dtype=torch.int32,
+                          device=row.device)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        loader.check(lib.repro_neighbor_expand(
+            row.data_ptr(), tbl.data_ptr(), pos.data_ptr(), ptr(pm),
+            ptr(vis), out.data_ptr(), row.shape[0], row.shape[1],
+            pos.shape[0], tbl.shape[0], m, m_beta, strategies[strategy],
+            torch.cuda.current_stream().cuda_stream),
+            "baseline neighbor_expand")
+        return out
+
+    return gather, expand
+
+
+def time_in_turns(new, old, flush) -> dict:
+    """``new`` timed with ``time_ms``; with an ``old`` version, in turns
+    old, new, new, old, so drift over the run hits both alike."""
+    if old is None:
+        return dict(ms=time_ms(new, ITERS, flush))
+    o1, n1, n2, o2 = (time_ms(f, ITERS, flush) for f in (old, new, new, old))
+    return dict(ms=(n1 + n2) / 2, baseline_ms=(o1 + o2) / 2,
+                ms_runs=[n1, n2], baseline_runs=[o1, o2],
+                speedup=(o1 + o2) / (n1 + n2))
+
+
+def assert_gather_close(got, want, what: str) -> float:
+    """+inf exactly where the plain version has it, finite values within
+    rtol 1e-5 / atol 1e-4 (fp32 sums in another order); the max |err|."""
+    import torch
+    inf = want == float("inf")
+    fin = torch.isfinite(want)
+    if not (torch.equal(got == float("inf"), inf) and torch.allclose(
+            got[fin], want[fin], rtol=1e-5, atol=1e-4)):
+        raise AssertionError(f"{what}: disagrees with the plain version")
+    return float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) \
+        else 0.0
+
+
+def measure_gather(ids, q, x, metric, flush, base, what: str) -> dict:
+    """gather_distance against its plain version (and the baseline kernel,
+    if given), then the kernel (in turns with the baseline) and the plain
+    version timed with a cold L2, and the bound of these inputs."""
+    from repro_torch.kernels.gather_distance import (gather_distance_cuda,
+                                                     gather_distance_ref)
+    want = gather_distance_ref(ids, q, x, metric)
+    err = assert_gather_close(gather_distance_cuda(ids, q, x, metric), want,
+                              what)
+    if base is not None:
+        assert_gather_close(base[0](ids, q, x, metric), want,
+                            what + " (baseline)")
+    bound_ms, by = gather_distance_bound(ids, q, x)
+    rec = dict(
+        shape=f"ids({ids.shape[0]},{ids.shape[1]}) q({q.shape[0]},"
+              f"{q.shape[1]}) x({x.shape[0]},{x.shape[1]}) {metric} "
+              f"invalid={float((ids < 0).float().mean()):.3f}",
+        max_abs_err=err,
+        **time_in_turns(lambda: gather_distance_cuda(ids, q, x, metric),
+                        None if base is None else
+                        lambda: base[0](ids, q, x, metric), flush),
+        plain_ms=time_ms(lambda: gather_distance_ref(ids, q, x, metric),
+                         ITERS // 5, flush),
+        bound_ms=bound_ms, bound_by=by, library_ms=None)
+    log("kernels", kernel="gather_distance", what=repr(what), **{
+        k: repr(v) if isinstance(v, str) else v for k, v in rec.items()})
+    return rec
+
+
+def measure_expand(args, kw, flush, base, what: str) -> dict:
+    """neighbor_expand bit for bit against its plain version (and the
+    baseline kernel, if given), then timed as ``measure_gather`` does,
+    with its bound and the lanes' stop positions: the mean and largest,
+    the mean rounds of the PR 11 design (chunks of 256 positions) and the
+    least mean rounds of the present one (at most 512 positions a round;
+    it narrows a round to 256 where the yield so far says that is
+    enough)."""
+    import torch
+    from repro_torch.kernels.neighbor_expand import (neighbor_expand_cuda,
+                                                     neighbor_expand_ref)
+    want = neighbor_expand_ref(*args, **kw)
+    outs = [("kernel", neighbor_expand_cuda(*args, **kw))]
+    if base is not None:
+        outs.append(("baseline", base[1](*args, **kw)))
+    torch.cuda.synchronize()
+    for who, got in outs:
+        if not torch.equal(got, want):
+            bad = int((got != want).any(dim=1).sum())
+            raise AssertionError(f"neighbor_expand {what} ({who}): {bad} "
+                                 "lanes differ from the plain version")
+    bound_ms, by, stop = neighbor_expand_bound(*args, **kw)
+    row, pm, vis = args[0], args[3], args[4]
+    rec = dict(
+        shape=f"row({row.shape[0]},{row.shape[1]}) {kw['strategy']} "
+              f"m={kw['m']} m_beta={kw['m_beta']} pass_mask="
+              f"{float(pm.float().mean()):.4f} visited="
+              f"{float(vis.float().mean()):.5f}",
+        max_abs_err=0.0,
+        **time_in_turns(lambda: neighbor_expand_cuda(*args, **kw),
+                        None if base is None else
+                        lambda: base[1](*args, **kw), flush),
+        plain_ms=time_ms(lambda: neighbor_expand_ref(*args, **kw),
+                         ITERS // 5, flush),
+        bound_ms=bound_ms, bound_by=by, library_ms=None,
+        stop_mean=float(stop.float().mean()), stop_max=int(stop.max()),
+        rounds_256_mean=float(((stop + 255) // 256).float().mean()),
+        rounds_512_least_mean=float(((stop + 511) // 512).float().mean()))
+    log("kernels", kernel="neighbor_expand", what=repr(what), **{
+        k: repr(v) if isinstance(v, str) else v for k, v in rec.items()})
+    return rec
+
+
+def capture_hops(index, request) -> tuple:
+    """Serve ``request`` (a forced graph-route request) with recording
+    wrappers around ``repro_torch.core.search``'s ``neighbor_expand`` and
+    ``gather_distance``, removed in a ``finally``.  Returns the arguments
+    of the level-0 hops in HOPS (the calls that pass a visited set, copied
+    before the search marks the hop's ids, and the ``gather_distance``
+    call that follows each) and the request's level-0 hop count."""
+    import torch
+    from repro_torch.core import search
+    expand, gather = search.neighbor_expand, search.gather_distance
+    hops, state = [], {"hop": 0, "want": False}
+
+    def rec_expand(row, tbl, pos, pm=None, vis=None, **kw):
+        if vis is not None:          # only the level-0 beam passes visited
+            state["hop"] += 1
+            if state["hop"] in HOPS:
+                hops.append([(row.clone(), tbl, pos, pm, vis.clone()),
+                             dict(kw)])
+                state["want"] = True
+        return expand(row, tbl, pos, pm, vis, **kw)
+
+    def rec_gather(ids, q, x, metric="l2"):
+        if state["want"]:
+            hops[-1].append((ids.clone(), q, x, metric))
+            state["want"] = False
+        return gather(ids, q, x, metric=metric)
+
+    search.neighbor_expand, search.gather_distance = rec_expand, rec_gather
+    try:
+        index.search(request)
+        torch.cuda.synchronize()
+    finally:
+        search.neighbor_expand, search.gather_distance = expand, gather
+    return hops, state["hop"]
+
+
+def check_expand(calls, what: str) -> int:
+    """neighbor_expand bit for bit against its plain version on the card
+    for each (row, tbl, pos, pm, vis, kw) of ``calls``, with and without
+    the pass mask and the visited set; returns the number of calls
+    checked."""
+    import torch
+    from repro_torch.kernels.neighbor_expand import (neighbor_expand_cuda,
+                                                     neighbor_expand_ref)
+    checked = 0
+    for row, tbl, pos, pm, vis, kw in calls:
+        for p_, v_ in ((None, None), (pm, None), (None, vis), (pm, vis)):
+            got = neighbor_expand_cuda(row, tbl, pos, p_, v_, **kw)
+            want = neighbor_expand_ref(row, tbl, pos, p_, v_, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"neighbor_expand {what} {kw} n_l={tbl.shape[0]} "
+                    f"mask={p_ is not None} visited={v_ is not None}: "
+                    f"{int((got != want).any(dim=1).sum())} lanes differ")
+            checked += 1
+    return checked
+
+
+def expand_edge_calls(dev):
+    """NE_EDGE_CASES as (row, tbl, pos, pm, vis, kw) on ``dev``."""
+    import torch
+    for ci, case in enumerate(NE_EDGE_CASES):
+        yield (*(torch.from_numpy(a).to(dev)
+                 for a in expand_edge_inputs(**case, seed=ci)),
+               dict(strategy=case["strategy"], m=case["m"],
+                    m_beta=case.get("m_beta", 0)))
+
+
+def check_gather_edges(dev) -> float:
+    """gather_distance against its plain version on the card at
+    GD_EDGE_CASES, both metrics; returns the max |err|."""
+    import torch
+    from repro_torch.kernels.gather_distance import (gather_distance_cuda,
+                                                     gather_distance_ref)
+    err = 0.0
+    for ci, case in enumerate(GD_EDGE_CASES):
+        ids, q, x = (torch.from_numpy(a).to(dev)
+                     for a in gather_edge_inputs(**case, seed=ci))
+        for metric in ("l2", "ip"):
+            got = gather_distance_cuda(ids, q, x, metric)
+            torch.cuda.synchronize()
+            err = max(err, assert_gather_close(
+                got, gather_distance_ref(ids, q, x, metric),
+                f"gather_distance edge case {case} {metric}"))
+    return err
 
 
 def filtered_topk_bound(q, x, mask, k: int, metric: str) -> dict:
@@ -414,10 +754,15 @@ def measure_filtered_topk(q, x, mask, k: int, metric: str, flush,
     return rec
 
 
+# the port's kernels by name, as the profiler reports their device time
+PORT_KERNELS = ("neighbor_expand", "gather_distance", "filtered_topk",
+                "pna_aggregate", "embedding_bag")
+
+
 def profile_call(fn, **labels) -> None:
     """Trace one call of ``fn`` (a request); print its wall time, the
-    device's busy time and idle share, and the device time of the heaviest
-    kernels."""
+    device's busy time and idle share, the device time of each of the
+    port's kernels and of the heaviest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -435,12 +780,15 @@ def profile_call(fn, **labels) -> None:
         elif ev.self_cpu_time_total > 0:
             host_us[ev.key] = ev.self_cpu_time_total
     busy_ms = sum(dev_us.values()) / 1e3
+    port_ms = {name: round(sum(v for k, v in dev_us.items() if name in k)
+                           / 1e3, 4) for name in PORT_KERNELS}
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     top_host = sorted(host_us.items(), key=lambda kv: -kv[1])[:8]
     log("profile", **labels, wall_ms=f"{wall_ms:.3f}",
         device_busy_ms=f"{busy_ms:.3f}",
         idle_share=f"{1 - busy_ms / wall_ms:.3f}" if busy_ms else
         "not_measured",
+        port_kernel_ms={k: v for k, v in port_ms.items() if v},
         top_ms=[(k[:48], round(v / 1e3, 4)) for k, v in top],
         top_host_ms=[(k[:40], round(v / 1e3, 4)) for k, v in top_host])
 
@@ -1045,6 +1393,11 @@ def main(argv=None) -> int:
                          "retrieval request and one PNA request with "
                          "torch.profiler and print where the device time "
                          "goes")
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="a directory holding an earlier gather_distance.cu "
+                         "and neighbor_expand.cu: build them into a library "
+                         "of their own and time them in turns with the "
+                         "port's at the timed and path-captured shapes")
     args = ap.parse_args(argv)
 
     import torch
@@ -1061,8 +1414,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import loader
     from repro_torch.kernels.gather_distance import (gather_distance_cuda,
                                                      gather_distance_ref)
-    from repro_torch.kernels.neighbor_expand import (neighbor_expand_cuda,
-                                                     neighbor_expand_ref)
+    from repro_torch.kernels.neighbor_expand import neighbor_expand_cuda
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -1116,34 +1468,29 @@ def main(argv=None) -> int:
     for metric in ("l2", "ip"):
         for loads, qq in (("float4", q), ("scalar", q_odd)):
             got = gather_distance_cuda(ids, qq, index.x, metric)
-            want = gather_distance_ref(ids, qq, index.x, metric)
             torch.cuda.synchronize()
-            inf_ok = bool(((got == float("inf")) ==
-                           (want == float("inf"))).all())
-            fin = torch.isfinite(want)
-            err = float((got[fin] - want[fin]).abs().max())
-            close = bool(torch.allclose(got[fin], want[fin], rtol=1e-5,
-                                        atol=1e-4))
+            err = assert_gather_close(
+                got, gather_distance_ref(ids, qq, index.x, metric),
+                f"gather_distance {metric} ({loads} loads)")
             log("kernels", kernel="gather_distance", metric=metric,
-                loads=loads, max_abs_err=err, inf_match=inf_ok, close=close)
-            if not (inf_ok and close):
-                raise AssertionError(f"gather_distance {metric} ({loads} "
-                                     "loads) disagrees with its plain "
-                                     "version")
+                loads=loads, max_abs_err=err)
             gd_err = max(gd_err, err)
+    edge_err = check_gather_edges(dev)
+    log("kernels", kernel="gather_distance", edge_cases=len(GD_EDGE_CASES)
+        * 2, max_abs_err=edge_err)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    gd_ms = time_ms(lambda: gather_distance_cuda(ids, q, index.x, "l2"),
-                    ITERS, flush)
-    gd_plain = time_ms(lambda: gather_distance_ref(ids, q, index.x, "l2"),
-                       ITERS, flush)
-    gd_bound, gd_by = gather_distance_bound(ids, q, index.x)
+    base = baseline_kernels(args.baseline) if args.baseline else None
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_ms(one.zero_, ITERS, flush)
+    log("kernels", launch_floor_ms=floor_ms,
+        what="'one 1-element zero_() timed as the kernels are'")
+    gd = measure_gather(ids, q, index.x, "l2", flush, base, "timed shape")
+    gd["max_abs_err"] = max(gd_err, edge_err, gd["max_abs_err"])
     records.append(dict(
         name="gather_distance", route="cuda",
         source="src/repro_torch/csrc/gather_distance.cu",
         replaces="src/repro/kernels/gather_distance/kernel.py:61",
-        max_abs_err=gd_err, ms=gd_ms, plain_ms=gd_plain,
-        bound_ms=gd_bound, bound_by=gd_by, library_ms=None,
-        shape=f"ids({B},{M}) q({B},{D}) x({N},{D}) l2"))
+        launch_floor_ms=floor_ms, **gd))
 
     row0 = neighbor_rows(g, 0, nodes).contiguous()
     row1 = neighbor_rows(g, 1, g.node_ids[1][
@@ -1157,37 +1504,21 @@ def main(argv=None) -> int:
              ("compress", row0, g.neighbors[0], g.pos[0], row0.shape[1]),
              ("compress", row0, empty, g.pos[0], M_BETA),
              ("two_hop", row0, empty, g.pos[0], 0)]
-    for strategy, row, tbl, pos, mb in cases:
-        for p_, v_ in ((None, None), (pm, None), (None, vis), (pm, vis)):
-            got = neighbor_expand_cuda(row, tbl, pos, p_, v_,
-                                       strategy=strategy, m=M, m_beta=mb)
-            want = neighbor_expand_ref(row, tbl, pos, p_, v_,
-                                       strategy=strategy, m=M, m_beta=mb)
-            torch.cuda.synchronize()
-            same = bool(torch.equal(got, want))
-            if not same:
-                bad = int((got != want).any(dim=1).sum())
-                raise AssertionError(
-                    f"neighbor_expand {strategy} m_beta={mb} n_l="
-                    f"{tbl.shape[0]} mask={p_ is not None} "
-                    f"visited={v_ is not None}: {bad} lanes differ")
-    log("kernels", kernel="neighbor_expand", cases=len(cases) * 4,
+    graph_calls = [(row, tbl, pos, pm, vis,
+                    dict(strategy=strategy, m=M, m_beta=mb))
+                   for strategy, row, tbl, pos, mb in cases]
+    log("kernels", kernel="neighbor_expand",
+        cases=check_expand(graph_calls, "graph rows"),
+        edge_cases=check_expand(expand_edge_calls(dev), "edge case"),
         bit_identical=True)
-    ne_args = (row0, g.neighbors[0], g.pos[0], pm, vis)
-    ne_kw = dict(strategy="compress", m=M, m_beta=M_BETA)
-    ne_ms = time_ms(lambda: neighbor_expand_cuda(*ne_args, **ne_kw),
-                    ITERS, flush)
-    ne_plain = time_ms(lambda: neighbor_expand_ref(*ne_args, **ne_kw),
-                       ITERS // 5, flush)
-    ne_bound, ne_by = neighbor_expand_bound(*ne_args, **ne_kw)
+    ne = measure_expand((row0, g.neighbors[0], g.pos[0], pm, vis),
+                        dict(strategy="compress", m=M, m_beta=M_BETA), flush,
+                        base, "timed shape")
     records.append(dict(
         name="neighbor_expand", route="cuda",
         source="src/repro_torch/csrc/neighbor_expand.cu",
         replaces="src/repro/kernels/neighbor_expand/kernel.py:157",
-        max_abs_err=0.0, ms=ne_ms, plain_ms=ne_plain, bound_ms=ne_bound,
-        bound_by=ne_by, library_ms=None,
-        shape=f"row({B},{row0.shape[1]}) compress m={M} m_beta={M_BETA} "
-              "pass_mask+visited"))
+        launch_floor_ms=floor_ms, **ne))
     del vis
     topk_lcps = measure_filtered_topk(q, index.x, pm, TOPK_K, "l2", flush,
                                       "filtered_topk LCPS")
@@ -1269,6 +1600,23 @@ def main(argv=None) -> int:
     err, ties = assert_topk_match(ids_c, d_c, ids_h, d_h, qs.cpu(), x_cpu,
                                   "l2", "graph route card vs CPU")
     log("parity", queries=len(gsel), near_ties=ties, max_abs_err=err)
+
+    # ---- hops: both kernels at shapes captured from one graph request ----
+    hops, n_hops = capture_hops(index, SearchRequest(
+        xq=requests[0].xq, predicates=requests[0].predicates, k=K,
+        route="graph"))
+    log("hops", level0_hops=n_hops, captured=list(HOPS[:len(hops)]))
+    if not hops:
+        raise AssertionError("no level-0 hop was captured")
+    by_name = {r["name"]: r for r in records}
+    for hop, (ne_args, ne_kw, gd_args) in zip(HOPS, hops):
+        what = f"level-0 hop {hop}"
+        by_name["neighbor_expand"].setdefault("other_shapes", []).append(
+            dict(hop=hop, **measure_expand(ne_args, ne_kw, flush, base,
+                                           what)))
+        by_name["gather_distance"].setdefault("other_shapes", []).append(
+            dict(hop=hop, **measure_gather(*gd_args, flush, base, what)))
+    del hops
 
     rec, model = retrieve_phases(dev, flush, args.profile)
     rec["kernel_ms"] = rec["ms"]

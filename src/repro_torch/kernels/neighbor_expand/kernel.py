@@ -18,8 +18,8 @@ from repro_torch.kernels import loader
 
 STRATEGIES = {"filter": 0, "compress": 1, "two_hop": 2}
 
-# dynamic shared memory a block may take without an opt-in attribute
-_SMEM_LIMIT = 48 * 1024
+# shared memory a block may take on an H100 (the kernel opts in above 48 KB)
+_SMEM_LIMIT = 227 * 1024
 
 
 def neighbor_expand_cuda(row: torch.Tensor, nbr_table: torch.Tensor,
@@ -61,7 +61,8 @@ def neighbor_expand_cuda(row: torch.Tensor, nbr_table: torch.Tensor,
     smem = lib.repro_neighbor_expand_smem_bytes(cap, m)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"neighbor_expand_cuda: cap={cap}, m={m} needs "
-                         f"{smem} B of shared memory (> {_SMEM_LIMIT})")
+                         f"{smem} B of shared memory (> {_SMEM_LIMIT}); its "
+                         "dedup set grows with m")
     out = torch.empty((b, m), dtype=torch.int32, device=dev)  # kernel fills
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):

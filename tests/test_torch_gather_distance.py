@@ -4,8 +4,10 @@ The port's plain version is held against the reference's jnp oracle and
 its Pallas kernel (interpret mode) on the same numpy inputs, for l2 and
 ip, with -1 padding and out-of-range ids (clipped into [0, n-1] before
 the row load).  Tolerance rtol 1e-5 / atol 1e-5: the fp32 sums run in
-different orders.  The CUDA kernel is held against the plain version on
-the card (skipped without one).
+different orders.  The CUDA kernel's edge cases (``CARD_CASES``, the same
+list as ``chip_smoke.py``'s ``GD_EDGE_CASES``) are held against the
+reference on the CPU and against the plain version on the card (skipped
+without one).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,35 @@ from repro_torch.kernels.gather_distance import (gather_distance,
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 
 B, M, N, D = 5, 12, 40, 16
+
+# the CUDA kernel's edge cases, the same as GD_EDGE_CASES in chip_smoke.py
+# (case i is drawn with seed i by _edge_inputs): d = 13 (scalar loads), all
+# ids -1, ids >= n (clipped), M not a multiple of a warp's 4 rows, B = 1,
+# more row groups than warps
+CARD_CASES = [
+    dict(b=5, m=12, n=40, d=16), dict(b=5, m=12, n=40, d=13),
+    dict(b=4, m=9, n=50, d=16, kind="invalid"),
+    dict(b=3, m=13, n=30, d=24, kind="clip"),
+    dict(b=1, m=32, n=100, d=128), dict(b=3, m=70, n=500, d=64)]
+
+
+def _edge_inputs(b, m, n, d, kind="random", seed=0):
+    """(ids, q, x) numpy arrays of a CARD_CASES entry, as chip_smoke.py's
+    gather_edge_inputs draws them."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-1, n, size=(b, m)).astype(np.int32)
+    if kind == "invalid":
+        ids[:] = -1
+    elif kind == "clip":
+        ids[:, ::2] = rng.integers(n, n + 5, size=ids[:, ::2].shape)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    return ids, q, x
+
+
+def _edge_id(ci):
+    c = CARD_CASES[ci]
+    return f"b{c['b']}-m{c['m']}-d{c['d']}-{c.get('kind', 'random')}"
 
 
 def _inputs(seed, d=D):
@@ -57,12 +88,27 @@ def test_cpu_tensors_route_to_plain_version():
     assert gather_distance_cuda.launches == before
 
 
-@pytest.mark.parametrize("d", [D, 13])   # d % 4 != 0 takes the scalar loads
+@pytest.mark.parametrize("ci", range(len(CARD_CASES)), ids=_edge_id)
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_cuda_kernel_matches_plain_version(cuda_device, metric, d):
-    ids, q, x = _inputs(2, d)
-    t = [torch.from_numpy(a).to(cuda_device) for a in (ids, q, x)]
+def test_edge_cases_match_reference(metric, ci):
+    ids, q, x = _edge_inputs(**CARD_CASES[ci], seed=ci)
+    j = [jnp.asarray(a) for a in (ids, q, x)]
+    got = gather_distance(*(torch.from_numpy(a) for a in (ids, q, x)),
+                          metric=metric).numpy()
+    assert np.array_equal(np.isinf(got), ids < 0)
+    for want in (jax_ref(*j, metric),
+                 gather_distance_pallas(*j, metric, interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("ci", range(len(CARD_CASES)), ids=_edge_id)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_kernel_matches_plain_version(cuda_device, metric, ci):
+    t = [torch.from_numpy(a).to(cuda_device)
+         for a in _edge_inputs(**CARD_CASES[ci], seed=ci)]
     got = gather_distance_cuda(*t, metric=metric)
     want = gather_distance_ref(*t, metric=metric)
     torch.cuda.synchronize()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
