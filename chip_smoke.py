@@ -465,8 +465,8 @@ def measure_expand(args, kw, flush, base, what: str) -> dict:
     """neighbor_expand bit for bit against its plain version (and the
     baseline kernel, if given), then timed as ``measure_gather`` does,
     with its bound and the lanes' stop positions: the mean and largest,
-    the mean rounds of the PR 11 design (chunks of 256 positions) and the
-    least mean rounds of the present one (at most 512 positions a round;
+    the mean rounds of a design that walks chunks of 256 positions and
+    the least mean rounds of the present one (at most 512 positions a round;
     it narrows a round to 256 where the yield so far says that is
     enough)."""
     import torch
