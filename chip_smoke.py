@@ -4,9 +4,11 @@
     python3 chip_smoke.py   # SIFT1M-shaped LCPS index (n = 1,000,000),
                             # two-tower retrieval_cand (n = 1,048,576),
                             # embedding_bag and PNA molecule inference
-    python3 chip_smoke.py --baseline DIR   # also time the gather_distance.cu
-                            # and neighbor_expand.cu in DIR (an earlier
-                            # version) in turns with the port's
+    python3 chip_smoke.py --baseline DIR   # also time the gather_distance.cu,
+                            # neighbor_expand.cu and filtered_topk.cu in DIR
+                            # (an earlier version) in turns with the port's
+    python3 chip_smoke.py --profile        # also trace requests (device time
+                            # and launches of each of the port's kernels)
 
 Phases, each printed on its own line:
 
@@ -28,8 +30,10 @@ Phases, each printed on its own line:
            ids identical except at near ties and dists within rtol 1e-5 /
            atol max(1e-4, 1e-6 (|q|^2 + |x|^2)), and the same at
            ``TOPK_EDGE_CASES`` (padding, partial tiles, k = n, ties, k at
-           its cap of 256, two and three merge rounds); then timed with
-           CUDA events.
+           its cap of 256, up to 16,602 tile lists, every tile holding the
+           same scores, all rows passing at n = 2^20, fewer passing rows
+           than k); then timed with CUDA events (with ``--baseline``, in
+           turns with the earlier ``filtered_topk.cu``).
   serve    at least four 256-query requests through ``HybridIndex.search``
            with §5.2 routing (a forced request is added if a route got no
            query); launch counters are zeroed just before and read just
@@ -48,12 +52,16 @@ Phases, each printed on its own line:
            1024-512-256): item embeddings of 1,048,576 candidates, a
            ``category`` column (12 uniform labels, one rare label on 37
            items); filtered_topk held against its plain version at the
-           path's shape (B = 1, k = 100, ip) and timed; then 64 batch-1
-           requests (Equals predicate -> mask -> step) with the launch
-           counters zeroed just before and read just after; p50 / p99
-           request time (and the p50 of its mask and step parts, each
-           ended by a synchronise), peak device memory; one batch-512
-           ``serve_p99``.
+           path's shape (B = 1, k = 100, ip) and timed (with
+           ``--baseline``, in turns with the earlier kernel: ``baseline_ms``,
+           ``ms_runs``, ``speedup``); then 64 batch-1 requests (Equals
+           predicate -> mask -> step) with the launch counters zeroed just
+           before and read just after; p50 / p99 request time (and the p50
+           of its parts, each ended by a synchronise: the mask, split into
+           ``compile_predicates``, ``pack_columns`` + ``regex_aux`` and
+           ``evaluate_program``, and the step), peak device memory; one
+           batch-512 ``serve_p99``.  With ``--profile``, one request
+           traced: filtered_topk's device launches and time per launch.
   parity   8 of those requests on a CPU copy of the model, candidates and
            table: ids identical except at near ties, scores within 1e-5.
   bag      the ``embedding_bag`` op (forward and gradient) over the same
@@ -109,8 +117,10 @@ ITERS = 50     # timed launches per kernel (the plain version: ITERS // 5)
 FLUSH_BYTES = 256 << 20   # overwritten before each timed call: > 50 MB L2
 TOPK_K = 10               # filtered_topk's second shape, on the LCPS index
 # filtered_topk's edge cases, the same as CARD_CASES in
-# tests/test_torch_filtered_topk.py (case i is drawn with seed i); tile
-# lists hold 8192 rows and a merge CTA takes 16384 // next_pow2(k) lists
+# tests/test_torch_filtered_topk.py (case i is drawn with seed i); the
+# kernel's tiles hold 2048 rows, one CTA each, and the last CTA of a query
+# selects from the keys the tiles published (in shared memory up to 2048
+# keys, from the lists in global memory past that)
 TOPK_EDGE_CASES = [
     dict(b=5, n=777, d=24, k=9, p=0.2, empty_rows=True),
     dict(b=3, n=20_000, d=13, k=100, p=0.3, empty_rows=True),  # scalar loads
@@ -118,13 +128,20 @@ TOPK_EDGE_CASES = [
     dict(b=4, n=9_000, d=16, k=33, dup=True),
     dict(b=1, n=70_000, d=8, k=1, p=1.1),
     dict(b=2, n=100, d=8, k=100, p=0.3),          # k = n, one tile
-    dict(b=1, n=64, d=3, k=64, p=1.1, dup=True),  # k = n = the least tile
-    # merge rounds: 128 lists in groups of 64 (two rounds), 611 in groups
-    # of 128 (two), 4151 in groups of 64 (three: the workspace ping-pongs
-    # back); integer data, so both versions score exactly and ties are exact
+    dict(b=1, n=64, d=3, k=64, p=1.1, dup=True),  # k = n
+    # 512, 2442 and 16,602 tile lists; integer data, so both versions score
+    # exactly and ties are exact
     dict(b=2, n=1 << 20, d=4, k=256, ints=True),
     dict(b=3, n=5_000_000, d=4, k=128, ints=True),
     dict(b=1, n=34_000_000, d=4, k=256, ints=True),
+    # every tile holds the same scores: every key ties with the threshold
+    # and the id order decides; the last CTA's candidates overflow its
+    # shared buffer
+    dict(b=2, n=64 * 2048, d=4, k=256, p=1.1, ints=True, period=2048),
+    dict(b=1, n=1 << 20, d=8, k=256, p=1.1, ints=True),  # all pass
+    dict(b=2, n=5 * 2048 + 300, d=16, k=100, tail=300),  # last tile only
+    dict(b=2, n=1 << 20, d=32, k=100, few=37),    # fewer than k, spread
+    dict(b=2, n=4 * 2048 + 1, d=16, k=50, p=0.3, last_row=True),
 ]
 
 # two-tower retrieval_cand (repro_torch/configs/two_tower_retrieval.py FULL)
@@ -356,19 +373,21 @@ def neighbor_expand_bound(row, tbl, pos, pm, vis, strategy, m, m_beta):
 
 
 def baseline_kernels(src_dir: str) -> tuple:
-    """An earlier ``gather_distance.cu`` and ``neighbor_expand.cu`` from
-    ``src_dir`` (the same C entry points, names and arguments), built with
-    the loader's flags into a library of their own and loaded beside the
-    port's; returns (gather_distance, neighbor_expand) callables that take
-    the launchers' arguments.  For timing a redesign against the kernels
-    it replaced in one run."""
+    """An earlier ``gather_distance.cu``, ``neighbor_expand.cu`` and
+    ``filtered_topk.cu`` from ``src_dir`` (the same C entry points, names
+    and arguments; ``filtered_topk`` with or without the per-query
+    ``state`` buffer of the one-launch design), built with the loader's
+    flags into a library of their own and loaded beside the port's; returns
+    (gather_distance, neighbor_expand, filtered_topk) callables that take
+    the launchers' arguments.  For timing a redesign against the kernels it
+    replaced in one run."""
     import ctypes
     import torch
     from repro_torch.kernels import loader
     out = loader.BUILD_DIR / "baseline"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = loader._nvcc()
-    names = ("gather_distance", "neighbor_expand")
+    names = ("gather_distance", "neighbor_expand", "filtered_topk")
     objs = [str(out / f"{nm}.o") for nm in names]
     loader._run_all([[nvcc, *loader.NVCC_FLAGS, "-c",
                       os.path.join(src_dir, f"{nm}.cu"), "-o", o]
@@ -382,6 +401,13 @@ def baseline_kernels(src_dir: str) -> tuple:
     lib.repro_neighbor_expand.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                           i, i, p]
     lib.repro_neighbor_expand.restype = i
+    with open(os.path.join(src_dir, "filtered_topk.cu")) as f:
+        with_state = "void* state" in f.read()
+    lib.repro_filtered_topk.argtypes = ([p] * (7 if with_state else 6)
+                                        + [i] * 5 + [p])
+    lib.repro_filtered_topk.restype = i
+    lib.repro_filtered_topk_workspace.argtypes = [i, i, i]
+    lib.repro_filtered_topk_workspace.restype = ctypes.c_longlong
     strategies = {"filter": 0, "compress": 1, "two_hop": 2}
 
     def gather(ids, q, x, metric):
@@ -405,7 +431,27 @@ def baseline_kernels(src_dir: str) -> tuple:
             "baseline neighbor_expand")
         return out
 
-    return gather, expand
+    state = torch.zeros(0, dtype=torch.int64)
+
+    def topk(q, x, mask, k, metric):
+        nonlocal state
+        b, n = mask.shape
+        ids = torch.empty((b, k), dtype=torch.int32, device=q.device)
+        dists = torch.empty((b, k), dtype=torch.float32, device=q.device)
+        ws = torch.empty(lib.repro_filtered_topk_workspace(b, n, k),
+                         dtype=torch.int64, device=q.device)
+        if with_state and state.numel() < 2 * b:
+            state = torch.zeros(2 * b, dtype=torch.int64, device=q.device)
+        ptrs = [q.data_ptr(), x.data_ptr(), mask.data_ptr(), ids.data_ptr(),
+                dists.data_ptr()] + ([state.data_ptr()] if with_state
+                                     else []) + [ws.data_ptr()]
+        loader.check(lib.repro_filtered_topk(
+            *ptrs, b, n, x.shape[1], k, int(metric == "ip"),
+            torch.cuda.current_stream().cuda_stream),
+            "baseline filtered_topk")
+        return ids, dists
+
+    return gather, expand, topk
 
 
 def time_in_turns(new, old, flush) -> dict:
@@ -666,7 +712,8 @@ def assert_topk_match(ids, dists, want_ids, want_dists, q, x, metric: str,
 
 
 def topk_inputs(b, n, d, p=0.5, seed=0, dup=False, empty_rows=False,
-                ints=False):
+                ints=False, period=None, tail=None, few=None,
+                last_row=False):
     """(q, x, mask) numpy arrays of an edge case, as
     tests/test_torch_filtered_topk.py draws them."""
     rng = np.random.default_rng(seed)
@@ -684,6 +731,16 @@ def topk_inputs(b, n, d, p=0.5, seed=0, dup=False, empty_rows=False,
         if b > 1:
             mask[1, :] = False
             mask[1, n - n // 8:] = True         # only the last rows pass
+    if period:   # x repeats every `period` rows: every tile scores the same
+        x = x[np.arange(n) % period]
+    if tail:     # nothing passes before the last `tail` rows
+        mask[:, :n - tail] = False
+    if few:      # exactly `few` rows pass per query, anywhere
+        mask[:] = False
+        for row in mask:
+            row[rng.choice(n, few, replace=False)] = True
+    if last_row:
+        mask[:, -1] = True
     return q, x, mask
 
 
@@ -719,10 +776,11 @@ def check_filtered_topk_edges(dev) -> int:
     return ties
 
 
-def measure_filtered_topk(q, x, mask, k: int, metric: str, flush,
+def measure_filtered_topk(q, x, mask, k: int, metric: str, flush, base,
                           what: str) -> dict:
-    """Kernel vs plain version on the card, then the kernel, the plain
-    version and the library yardstick timed with a cold L2."""
+    """Kernel (and the baseline kernel, if given) vs plain version on the
+    card, then the kernel (in turns with the baseline), the plain version
+    and the library yardstick timed with a cold L2."""
     import torch
     from repro_torch.kernels.filtered_topk import (filtered_topk_cuda,
                                                    filtered_topk_ref)
@@ -730,6 +788,9 @@ def measure_filtered_topk(q, x, mask, k: int, metric: str, flush,
     want = filtered_topk_ref(q, x, mask, k, metric)
     torch.cuda.synchronize()
     err, ties = assert_topk_match(*got, *want, q, x, metric, what)
+    if base is not None:
+        assert_topk_match(*base[2](q, x, mask, k, metric), *want, q, x,
+                          metric, what + " (baseline)")
     neg = float("-inf")
     if metric == "ip":
         library = lambda: torch.topk(torch.where(mask, q @ x.T, neg), k)  # noqa: E731
@@ -743,8 +804,9 @@ def measure_filtered_topk(q, x, mask, k: int, metric: str, flush,
         shape=f"q({q.shape[0]},{q.shape[1]}) x({x.shape[0]},{x.shape[1]}) "
               f"k={k} {metric} mask_density={float(mask.float().mean()):.4f}",
         max_abs_err=err, near_ties=ties,
-        ms=time_ms(lambda: filtered_topk_cuda(q, x, mask, k, metric),
-                   ITERS, flush),
+        **time_in_turns(lambda: filtered_topk_cuda(q, x, mask, k, metric),
+                        None if base is None else
+                        lambda: base[2](q, x, mask, k, metric), flush),
         plain_ms=time_ms(lambda: filtered_topk_ref(q, x, mask, k, metric),
                          ITERS // 5, flush),
         library_ms=time_ms(library, ITERS // 5, flush), library_calls=calls,
@@ -761,8 +823,9 @@ PORT_KERNELS = ("neighbor_expand", "gather_distance", "filtered_topk",
 
 def profile_call(fn, **labels) -> None:
     """Trace one call of ``fn`` (a request); print its wall time, the
-    device's busy time and idle share, the device time of each of the
-    port's kernels and of the heaviest kernels."""
+    device's busy time and idle share, the device time and the number of
+    device kernel launches of each of the port's kernels, and the heaviest
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -772,16 +835,19 @@ def profile_call(fn, **labels) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_us, host_us = {}, {}
+    dev_us, dev_n, host_us = {}, {}, {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0) or 0
         if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             dev_us[ev.key] = dev_us.get(ev.key, 0) + us
+            dev_n[ev.key] = dev_n.get(ev.key, 0) + ev.count
         elif ev.self_cpu_time_total > 0:
             host_us[ev.key] = ev.self_cpu_time_total
     busy_ms = sum(dev_us.values()) / 1e3
     port_ms = {name: round(sum(v for k, v in dev_us.items() if name in k)
                            / 1e3, 4) for name in PORT_KERNELS}
+    port_n = {name: sum(v for k, v in dev_n.items() if name in k)
+              for name in PORT_KERNELS}
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     top_host = sorted(host_us.items(), key=lambda kv: -kv[1])[:8]
     log("profile", **labels, wall_ms=f"{wall_ms:.3f}",
@@ -789,14 +855,19 @@ def profile_call(fn, **labels) -> None:
         idle_share=f"{1 - busy_ms / wall_ms:.3f}" if busy_ms else
         "not_measured",
         port_kernel_ms={k: v for k, v in port_ms.items() if v},
+        port_kernel_launches={k: v for k, v in port_n.items() if v},
+        port_kernel_ms_per_launch={
+            k: round(v / port_n[k], 5) for k, v in port_ms.items()
+            if v and port_n[k]},
         top_ms=[(k[:48], round(v / 1e3, 4)) for k, v in top],
         top_host_ms=[(k[:40], round(v / 1e3, 4)) for k, v in top_host])
 
 
-def retrieve_phases(dev, flush, profile: bool) -> tuple:
+def retrieve_phases(dev, flush, profile: bool, base) -> tuple:
     """The two-tower ``retrieval_cand`` path at FULL width, its kernel
-    check, the counted requests, ``serve_p99`` and the CPU parity; returns
-    filtered_topk's record and the model."""
+    check (timed in turns with the baseline kernel, if given), the counted
+    requests, ``serve_p99`` and the CPU parity; returns filtered_topk's
+    record and the model."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.two_tower_retrieval import TOPK
@@ -856,21 +927,31 @@ def retrieve_phases(dev, flush, profile: bool) -> tuple:
         return step(model, batches[i], cand, mask_of(preds[i], table))
 
     def timed_request(i):
-        """The request, synchronised after the mask and after the step:
-        (result, seconds of the whole, of the mask, of the step)."""
+        """The request, as ``request``, synchronised after each part of the
+        mask (``compile_predicates``; ``pack_columns`` and ``regex_aux``;
+        ``evaluate_program``) and after the step: (result, seconds of the
+        whole, of the mask, of the step, of the three mask parts)."""
         t0 = time.perf_counter()
-        mask = mask_of(preds[i], table)
+        prog = compile_predicates([preds[i]], table)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        res = step(model, batches[i], cand, mask)
+        cols = pack_columns(table, prog.schema)
+        aux = regex_aux(table, prog.regex_leaves)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        return res, (t2 - t0, t1 - t0, t2 - t1)
+        mask = evaluate_program(prog, cols.ints, cols.bitsets, aux)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        res = step(model, batches[i], cand, mask)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        return res, (t4 - t0, t3 - t0, t4 - t3, t1 - t0, t2 - t1, t3 - t2)
 
     # the kernel against its plain version at the path's shape
     u = model.user_embed(batches[0]).contiguous()
     rec = measure_filtered_topk(u, cand, mask_of(preds[0], table), TOPK,
-                                "ip", flush, "filtered_topk retrieval_cand")
+                                "ip", flush, base,
+                                "filtered_topk retrieval_cand")
 
     # the main path: counters zeroed just before the requests, read after
     for i in range(WARMUP_REQUESTS):
@@ -886,13 +967,17 @@ def retrieve_phases(dev, flush, profile: bool) -> tuple:
         results.append(res)
     launches = filtered_topk_cuda.launches
     others = sum(fn.launches for fn in counters) - launches
-    ms, mask_ms, step_ms = (np.array(v) * 1e3 for v in zip(*seconds))
+    ms, mask_ms, step_ms, compile_ms, pack_ms, eval_ms = (
+        np.array(v) * 1e3 for v in zip(*seconds))
     log("retrieve", requests=RETRIEVE_REQUESTS,
         p50_ms=f"{np.percentile(ms, 50):.4f}",
         p99_ms=f"{np.percentile(ms, 99):.4f}",
         requests_per_s=f"{RETRIEVE_REQUESTS / ms.sum() * 1e3:.2f}",
         mask_p50_ms=f"{np.percentile(mask_ms, 50):.4f}",
         step_p50_ms=f"{np.percentile(step_ms, 50):.4f}",
+        compile_p50_ms=f"{np.percentile(compile_ms, 50):.4f}",
+        pack_p50_ms=f"{np.percentile(pack_ms, 50):.4f}",
+        evaluate_p50_ms=f"{np.percentile(eval_ms, 50):.4f}",
         request_ms=[round(float(v), 3) for v in ms],
         peak_memory_over_start=torch.cuda.max_memory_allocated() - mem0,
         filtered_topk_launches=launches, other_kernel_launches=others)
@@ -1394,10 +1479,11 @@ def main(argv=None) -> int:
                          "torch.profiler and print where the device time "
                          "goes")
     ap.add_argument("--baseline", metavar="DIR",
-                    help="a directory holding an earlier gather_distance.cu "
-                         "and neighbor_expand.cu: build them into a library "
-                         "of their own and time them in turns with the "
-                         "port's at the timed and path-captured shapes")
+                    help="a directory holding an earlier gather_distance.cu, "
+                         "neighbor_expand.cu and filtered_topk.cu: build "
+                         "them into a library of their own and time them in "
+                         "turns with the port's at the timed and "
+                         "path-captured shapes")
     args = ap.parse_args(argv)
 
     import torch
@@ -1521,7 +1607,7 @@ def main(argv=None) -> int:
         launch_floor_ms=floor_ms, **ne))
     del vis
     topk_lcps = measure_filtered_topk(q, index.x, pm, TOPK_K, "l2", flush,
-                                      "filtered_topk LCPS")
+                                      base, "filtered_topk LCPS")
     check_filtered_topk_edges(dev)
 
     # ---- serve: the main path, counters zeroed just before ----
@@ -1618,7 +1704,7 @@ def main(argv=None) -> int:
             dict(hop=hop, **measure_gather(*gd_args, flush, base, what)))
     del hops
 
-    rec, model = retrieve_phases(dev, flush, args.profile)
+    rec, model = retrieve_phases(dev, flush, args.profile, base)
     rec["kernel_ms"] = rec["ms"]
     rec["other_shapes"] = [topk_lcps]
     records.append(rec)

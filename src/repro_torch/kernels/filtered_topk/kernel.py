@@ -2,14 +2,18 @@
 
 Replaces the Pallas TPU kernel
 ``repro/kernels/filtered_topk/kernel.py::filtered_topk_pallas`` together
-with the ``lax.top_k`` reduction over its tiles in ``ops.py``.  The
-source's header says what bounds the kernel on an H100 and what its design
-does about it.  Unlike the TPU kernel (k <= 64) it takes every k up to
+with the ``lax.top_k`` reduction over its tiles in ``ops.py``.  One launch
+per call: a CTA per (query, 2048-row tile) scores the rows its mask passes,
+ranks its keys, raises the query's running k-th-key threshold and publishes
+its keys at or above it, sorted; the last CTA of each query (an arrival
+counter) selects the exact top k of what was published.  The source's
+header says what bounds the kernel on an H100 and what its design does
+about it.  Unlike the TPU kernel (k <= 64) it takes every k up to
 :data:`KMAX`.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -17,6 +21,22 @@ from repro_torch.kernels import loader
 
 # largest k the kernel takes (csrc/filtered_topk.cu, kMaxK)
 KMAX = 256
+
+# per (device, stream): the kernel's per-query state (running threshold and
+# arrival count, 2 int64 words a query), zeroed once; each call leaves it
+# zero again, so calls queued on one stream can share it
+_STATE: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _state(b: int, device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    st = _STATE.get(key)
+    if st is None or st.numel() < 2 * b:
+        # a larger buffer replaces the old one; queued calls that use the
+        # old one run first (same stream), so freeing it is safe
+        st = _STATE[key] = torch.zeros(2 * b, dtype=torch.int64,
+                                       device=device)
+    return st
 
 
 def filtered_topk_cuda(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
@@ -27,7 +47,7 @@ def filtered_topk_cuda(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
 
     CUDA tensors only, contiguous.  Raises ``ValueError`` for k > n and for
     k > :data:`KMAX`.  Adds one to ``filtered_topk_cuda.launches`` per
-    call that launches the kernels."""
+    call that launches the kernel."""
     if metric not in ("l2", "ip"):
         raise ValueError(metric)
     loader.check_tensors("filtered_topk_cuda", q.device,
@@ -55,9 +75,10 @@ def filtered_topk_cuda(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                      dtype=torch.int64, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        st = _state(b, q.device, stream)
         rc = lib.repro_filtered_topk(
             q.data_ptr(), x.data_ptr(), mask.data_ptr(), ids.data_ptr(),
-            dists.data_ptr(), ws.data_ptr(), b, n, d, k,
+            dists.data_ptr(), st.data_ptr(), ws.data_ptr(), b, n, d, k,
             int(metric == "ip"), stream)
         filtered_topk_cuda.launches += 1
     loader.check(rc, "filtered_topk")

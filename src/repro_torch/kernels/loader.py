@@ -108,8 +108,8 @@ def library() -> ctypes.CDLL:
             lib.repro_neighbor_expand.restype = i
             lib.repro_neighbor_expand_smem_bytes.argtypes = [i, i]
             lib.repro_neighbor_expand_smem_bytes.restype = i
-            lib.repro_filtered_topk.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                                i, p]
+            lib.repro_filtered_topk.argtypes = [p, p, p, p, p, p, p, i, i, i,
+                                                i, i, p]
             lib.repro_filtered_topk.restype = i
             lib.repro_filtered_topk_workspace.argtypes = [i, i, i]
             lib.repro_filtered_topk_workspace.restype = ctypes.c_longlong

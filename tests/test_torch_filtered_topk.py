@@ -26,7 +26,7 @@ from torch_parity import cuda_device  # noqa: F401  (fixture)
 
 
 def _inputs(b, n, d, p=0.5, seed=0, dup=False, empty_rows=False,
-            ints=False):
+            ints=False, period=None, tail=None, few=None, last_row=False):
     rng = np.random.default_rng(seed)
     if ints:  # small integers: both versions score exactly
         q = rng.integers(-64, 65, size=(b, d)).astype(np.float32)
@@ -42,6 +42,16 @@ def _inputs(b, n, d, p=0.5, seed=0, dup=False, empty_rows=False,
         if b > 1:
             mask[1, :] = False
             mask[1, n - n // 8:] = True         # only the last rows pass
+    if period:   # x repeats every `period` rows: every tile scores the same
+        x = x[np.arange(n) % period]
+    if tail:     # nothing passes before the last `tail` rows
+        mask[:, :n - tail] = False
+    if few:      # exactly `few` rows pass per query, anywhere
+        mask[:] = False
+        for row in mask:
+            row[rng.choice(n, few, replace=False)] = True
+    if last_row:
+        mask[:, -1] = True
     return q, x, mask
 
 
@@ -69,6 +79,12 @@ CASES = {
                                 empty_rows=True),
     "dup_4x300d8k9": dict(b=4, n=300, d=8, k=9, dup=True),
     "dup_4x300d8k100": dict(b=4, n=300, d=8, k=100, dup=True),
+    # the drawing options of the card's edge cases, at small sizes
+    "period_2x640d4k40": dict(b=2, n=640, d=4, k=40, p=1.1, ints=True,
+                              period=64),
+    "tail_3x500d8k20": dict(b=3, n=500, d=8, k=20, tail=70),
+    "few_2x900d8k50": dict(b=2, n=900, d=8, k=50, few=7),
+    "last_row_2x129d8k9": dict(b=2, n=129, d=8, k=9, p=0.1, last_row=True),
 }
 
 
@@ -116,7 +132,25 @@ def test_cpu_tensors_route_to_plain_version():
     assert filtered_topk_cuda.launches == before
 
 
-# the same as TOPK_EDGE_CASES in chip_smoke.py, which runs them on the card
+def test_launcher_state_is_zeroed_once_per_stream_and_grows():
+    """The kernel's per-query state (threshold, arrival count) is one zeroed
+    buffer per (device, stream), replaced by a larger zeroed one when a
+    call has more queries; the kernel leaves it zero after each call."""
+    from repro_torch.kernels.filtered_topk import kernel
+    dev = torch.device("cpu")
+    st = kernel._state(3, dev, 12345)
+    assert st.dtype == torch.int64 and st.numel() == 6
+    assert not st.any()
+    assert kernel._state(2, dev, 12345) is st
+    big = kernel._state(5, dev, 12345)
+    assert big.numel() == 10 and not big.any() and big is not st
+    assert kernel._state(1, dev, 54321) is not big
+    for key in [(None, 12345), (None, 54321)]:
+        kernel._STATE.pop(key)
+
+
+# the same as TOPK_EDGE_CASES in chip_smoke.py, which runs them on the card;
+# the kernel's tiles hold 2048 rows
 CARD_CASES = [
     dict(b=5, n=777, d=24, k=9, p=0.2, empty_rows=True),
     dict(b=3, n=20_000, d=13, k=100, p=0.3, empty_rows=True),  # scalar loads
@@ -125,10 +159,18 @@ CARD_CASES = [
     dict(b=1, n=70_000, d=8, k=1, p=1.1),
     dict(b=2, n=100, d=8, k=100, p=0.3),          # k = n, one tile
     dict(b=1, n=64, d=3, k=64, p=1.1, dup=True),  # k = n = the least tile
-    # two, two and three merge rounds of the tile lists
+    # 512, 2442 and 16,602 tile lists; integer data, exact ties
     dict(b=2, n=1 << 20, d=4, k=KMAX, ints=True),
     dict(b=3, n=5_000_000, d=4, k=128, ints=True),
     dict(b=1, n=34_000_000, d=4, k=KMAX, ints=True),
+    # every tile holds the same scores: every key ties with the threshold
+    # and the id order decides; the last CTA's candidates overflow its
+    # shared buffer
+    dict(b=2, n=64 * 2048, d=4, k=KMAX, p=1.1, ints=True, period=2048),
+    dict(b=1, n=1 << 20, d=8, k=KMAX, p=1.1, ints=True),  # all pass
+    dict(b=2, n=5 * 2048 + 300, d=16, k=100, tail=300),  # last tile only
+    dict(b=2, n=1 << 20, d=32, k=100, few=37),    # fewer than k, spread
+    dict(b=2, n=4 * 2048 + 1, d=16, k=50, p=0.3, last_row=True),
 ]
 
 
