@@ -5,8 +5,9 @@
                             # two-tower retrieval_cand (n = 1,048,576),
                             # embedding_bag and PNA molecule inference
     python3 chip_smoke.py --baseline DIR   # also time the gather_distance.cu,
-                            # neighbor_expand.cu and filtered_topk.cu in DIR
-                            # (an earlier version) in turns with the port's
+                            # neighbor_expand.cu, filtered_topk.cu and
+                            # pna_aggregate.cu in DIR (an earlier version)
+                            # in turns with the port's
     python3 chip_smoke.py --profile        # also trace requests (device time
                             # and launches of each of the port's kernels)
 
@@ -78,12 +79,15 @@ Phases, each printed on its own line:
            seed: ``pna_aggregate`` against its plain version at
            ``PNA_EDGE_CASES`` and at the path shape adj (128, 30, 30),
            feats (128, 30, 75) and a bulk shape of 16,384 graphs (max / min
-           exact, mean rtol 1e-5 / atol 1e-6, std atol 2e-3); timed; then
+           exact, mean rtol 1e-5 / atol 1e-6, std atol 2e-3); timed beside
+           the launch floor (with ``--baseline``, in turns with the earlier
+           ``pna_aggregate.cu``); then
            64 requests of 128 molecule-like graphs through
            ``forward_dense``, counters zeroed just before and read just
            after (``pna_aggregate`` must launch 4 x 64 times); p50 / p99
            request time and graphs/s; 8 requests against a CPU copy
-           (logits within atol 2e-3).
+           (logits within atol 2e-3).  With ``--profile``, one request
+           traced: pna_aggregate's device launches and time.
 
 The second-to-last lines are the ``{"kernels": [...]}`` record and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -170,15 +174,24 @@ BAG_EDGE_CASES = [
 PNA_REQUESTS, PNA_WARMUP, PNA_PARITY = 64, 2, 8
 PNA_BULK_GRAPHS = 16_384  # the bulk shape: a molecule library scored offline
 PNA_LOGITS_ATOL = 2e-3    # as tests/test_torch_pna.py
+PNA_WEIGHTS = (0, 0, 0, 0.5, 1, 2, -1)   # a weighted case's adjacency values
 # the same as CARD_CASES in tests/test_torch_pna_aggregate.py (case i is
-# drawn with seed i); N = 33 and 128 cross the kernel's 32-row source tile
+# drawn with seed i): N = 33 and 128 cross a 32-source tile; weighted
+# adjacencies (values in {0, 0.5, 1, 2, -1}, one case over several source
+# tiles); N = 31, where every graph's adjacency and features start at
+# another alignment; 5,000 graphs of N = 3, more than the persistent grid
+# holds at once; F = 1 and F = 300 (split into feature blocks); N = 600,
+# past a whole graph in shared memory
 PNA_EDGE_CASES = [
     dict(b=1, n=8, f=4), dict(b=2, n=30, f=75),
     dict(b=2, n=9, f=5, kind="zero"), dict(b=2, n=10, f=6, kind="full"),
     dict(b=3, n=30, f=16, kind="molecule"),
     dict(b=2, n=12, f=7, kind="constant"), dict(b=3, n=1, f=5),
     dict(b=3, n=33, f=75), dict(b=2, n=128, f=75, kind="molecule"),
-    dict(b=2, n=128, f=40)]
+    dict(b=2, n=128, f=40), dict(b=3, n=30, f=75, kind="weighted"),
+    dict(b=2, n=100, f=24, kind="weighted"), dict(b=4, n=31, f=75),
+    dict(b=5000, n=3, f=4), dict(b=4, n=30, f=1), dict(b=3, n=30, f=300),
+    dict(b=2, n=600, f=75)]
 
 # neighbor_expand's edge cases, the same as CARD_CASES in
 # tests/test_torch_neighbor_expand.py (case i is drawn with seed i by
@@ -373,21 +386,22 @@ def neighbor_expand_bound(row, tbl, pos, pm, vis, strategy, m, m_beta):
 
 
 def baseline_kernels(src_dir: str) -> tuple:
-    """An earlier ``gather_distance.cu``, ``neighbor_expand.cu`` and
-    ``filtered_topk.cu`` from ``src_dir`` (the same C entry points, names
-    and arguments; ``filtered_topk`` with or without the per-query
-    ``state`` buffer of the one-launch design), built with the loader's
-    flags into a library of their own and loaded beside the port's; returns
-    (gather_distance, neighbor_expand, filtered_topk) callables that take
-    the launchers' arguments.  For timing a redesign against the kernels it
-    replaced in one run."""
+    """An earlier ``gather_distance.cu``, ``neighbor_expand.cu``,
+    ``filtered_topk.cu`` and ``pna_aggregate.cu`` from ``src_dir`` (the
+    same C entry points, names and arguments; ``filtered_topk`` with or
+    without the per-query ``state`` buffer of the one-launch design), built
+    with the loader's flags into a library of their own and loaded beside
+    the port's; returns (gather_distance, neighbor_expand, filtered_topk,
+    pna_aggregate) callables that take the launchers' arguments.  For
+    timing a redesign against the kernels it replaced in one run."""
     import ctypes
     import torch
     from repro_torch.kernels import loader
     out = loader.BUILD_DIR / "baseline"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = loader._nvcc()
-    names = ("gather_distance", "neighbor_expand", "filtered_topk")
+    names = ("gather_distance", "neighbor_expand", "filtered_topk",
+             "pna_aggregate")
     objs = [str(out / f"{nm}.o") for nm in names]
     loader._run_all([[nvcc, *loader.NVCC_FLAGS, "-c",
                       os.path.join(src_dir, f"{nm}.cu"), "-o", o]
@@ -408,6 +422,8 @@ def baseline_kernels(src_dir: str) -> tuple:
     lib.repro_filtered_topk.restype = i
     lib.repro_filtered_topk_workspace.argtypes = [i, i, i]
     lib.repro_filtered_topk_workspace.restype = ctypes.c_longlong
+    lib.repro_pna_aggregate.argtypes = [p, p, p, i, i, i, p]
+    lib.repro_pna_aggregate.restype = i
     strategies = {"filter": 0, "compress": 1, "two_hop": 2}
 
     def gather(ids, q, x, metric):
@@ -451,7 +467,17 @@ def baseline_kernels(src_dir: str) -> tuple:
             "baseline filtered_topk")
         return ids, dists
 
-    return gather, expand, topk
+    def pna(adj, feats):
+        b, n, f = feats.shape
+        out = torch.empty((b, n, 4 * f), dtype=torch.float32,
+                          device=adj.device)
+        loader.check(lib.repro_pna_aggregate(
+            adj.data_ptr(), feats.data_ptr(), out.data_ptr(), b, n, f,
+            torch.cuda.current_stream().cuda_stream),
+            "baseline pna_aggregate")
+        return out
+
+    return gather, expand, topk, pna
 
 
 def time_in_turns(new, old, flush) -> dict:
@@ -821,11 +847,11 @@ PORT_KERNELS = ("neighbor_expand", "gather_distance", "filtered_topk",
                 "pna_aggregate", "embedding_bag")
 
 
-def profile_call(fn, **labels) -> None:
+def profile_call(fn, **labels) -> tuple:
     """Trace one call of ``fn`` (a request); print its wall time, the
     device's busy time and idle share, the device time and the number of
     device kernel launches of each of the port's kernels, and the heaviest
-    kernels."""
+    kernels; return the last two as dicts by kernel name (ms, launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -861,6 +887,7 @@ def profile_call(fn, **labels) -> None:
             if v and port_n[k]},
         top_ms=[(k[:48], round(v / 1e3, 4)) for k, v in top],
         top_host_ms=[(k[:40], round(v / 1e3, 4)) for k, v in top_host])
+    return port_ms, port_n
 
 
 def retrieve_phases(dev, flush, profile: bool, base) -> tuple:
@@ -1090,6 +1117,8 @@ def pna_inputs(b, n, f, kind="random", seed=0):
         feats = np.full((b, n, f), 1.7, np.float32)
     elif kind == "molecule":             # padded with isolated nodes
         adj, feats = molecule_graphs(b, n, f, seed, min_nodes=n // 2)
+    elif kind == "weighted":             # any finite edge weight
+        adj = rng.choice(np.array(PNA_WEIGHTS, np.float32), size=(b, n, n))
     else:
         raise ValueError(kind)
     return adj, feats
@@ -1123,9 +1152,12 @@ def pna_aggregate_bound(adj, feats) -> tuple:
     return bound(byts, 7 * int((adj > 0).sum()) * f)
 
 
-def measure_pna_aggregate(adj, feats, flush, what: str) -> dict:
-    """Kernel vs plain version on the card, then both timed with a cold
-    L2.  No PyTorch call computes the function: no library figure."""
+def measure_pna_aggregate(adj, feats, flush, base, floor_ms: float,
+                          what: str) -> dict:
+    """Kernel (and the baseline kernel, if given) vs plain version on the
+    card, then the kernel (in turns with the baseline) and the plain
+    version timed with a cold L2, the launch floor beside them.  No
+    PyTorch call computes the function: no library figure."""
     import torch
     from repro_torch.kernels.pna_aggregate import (pna_aggregate_cuda,
                                                    pna_aggregate_ref)
@@ -1133,14 +1165,23 @@ def measure_pna_aggregate(adj, feats, flush, what: str) -> dict:
     want = pna_aggregate_ref(adj, feats)
     torch.cuda.synchronize()
     err = assert_pna_blocks(got, want, feats.shape[2], what)
+    same = {}
+    if base is not None:
+        old = base[3](adj, feats)
+        assert_pna_blocks(old, want, feats.shape[2], what + " (baseline)")
+        same = dict(bit_identical_to_baseline=bool(torch.equal(got, old)))
+        del old
     del got, want
     b, n, f = feats.shape
     bound_ms, bound_by = pna_aggregate_bound(adj, feats)
     rec = dict(
         shape=f"adj({b},{n},{n}) feats({b},{n},{f}) "
               f"edges={int((adj > 0).sum())}",
-        max_abs_err=err,
-        ms=time_ms(lambda: pna_aggregate_cuda(adj, feats), ITERS, flush),
+        max_abs_err=err, **same,
+        **time_in_turns(lambda: pna_aggregate_cuda(adj, feats),
+                        None if base is None else
+                        lambda: base[3](adj, feats), flush),
+        launch_floor_ms=floor_ms,
         plain_ms=time_ms(lambda: pna_aggregate_ref(adj, feats), ITERS // 5,
                          flush),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
@@ -1150,10 +1191,11 @@ def measure_pna_aggregate(adj, feats, flush, what: str) -> dict:
     return rec
 
 
-def pna_phases(dev, flush, profile: bool) -> dict:
+def pna_phases(dev, flush, profile: bool, base, floor_ms: float) -> dict:
     """PNA's dense-batched inference at the ``molecule`` shape: the
-    kernel's checks and times, the counted requests and the CPU parity;
-    returns pna_aggregate's record."""
+    kernel's checks and times (in turns with the baseline kernel, if
+    given), the counted requests and the CPU parity; returns
+    pna_aggregate's record."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.pna import PNA_SHAPES
@@ -1207,13 +1249,13 @@ def pna_phases(dev, flush, profile: bool) -> dict:
     def messages(f):
         return torch.relu(f @ model.enc) @ model.layers[0].w_msg
 
-    rec = measure_pna_aggregate(adj[0], messages(feats[0]), flush,
-                                "pna_aggregate path shape")
+    rec = measure_pna_aggregate(adj[0], messages(feats[0]), flush, base,
+                                floor_ms, "pna_aggregate path shape")
     reps = PNA_BULK_GRAPHS // (PNA_REQUESTS * b)
     bulk = measure_pna_aggregate(
         adj.reshape(-1, n, n).repeat(reps, 1, 1),
         messages(feats.reshape(-1, n, cfg.d_in)).repeat(reps, 1, 1), flush,
-        "pna_aggregate bulk shape")
+        base, floor_ms, "pna_aggregate bulk shape")
 
     # the main path: counters zeroed just before the requests, read after
     def request(r):
@@ -1251,7 +1293,10 @@ def pna_phases(dev, flush, profile: bool) -> dict:
             raise AssertionError("PNA logits not finite of shape "
                                  f"({b}, {cfg.n_classes})")
     if profile:
-        profile_call(lambda: request(0), path="pna_molecule")
+        dev_ms, dev_n = profile_call(lambda: request(0), path="pna_molecule")
+        log("pna", traced_requests=1,
+            pna_aggregate_device_launches=dev_n["pna_aggregate"],
+            pna_aggregate_device_ms=dev_ms["pna_aggregate"])
 
     # parity: the same requests on a CPU copy (plain versions)
     cpu = set_pna_params(PNA(cfg), model.enc.cpu(), model.dec.cpu(),
@@ -1480,10 +1525,10 @@ def main(argv=None) -> int:
                          "goes")
     ap.add_argument("--baseline", metavar="DIR",
                     help="a directory holding an earlier gather_distance.cu, "
-                         "neighbor_expand.cu and filtered_topk.cu: build "
-                         "them into a library of their own and time them in "
-                         "turns with the port's at the timed and "
-                         "path-captured shapes")
+                         "neighbor_expand.cu, filtered_topk.cu and "
+                         "pna_aggregate.cu: build them into a library of "
+                         "their own and time them in turns with the port's "
+                         "at the timed and path-captured shapes")
     args = ap.parse_args(argv)
 
     import torch
@@ -1711,7 +1756,7 @@ def main(argv=None) -> int:
     records.append(bag_phases(dev, flush, model.user_emb))
     del model
     torch.cuda.empty_cache()
-    records.append(pna_phases(dev, flush, args.profile))
+    records.append(pna_phases(dev, flush, args.profile, base, floor_ms))
 
     log("total", seconds=f"{time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": records}))

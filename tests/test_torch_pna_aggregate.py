@@ -17,6 +17,9 @@ inputs.  Tolerances, block by block of ``[mean | max | min | std]``:
 The CUDA kernel is held against the plain version on the card (skipped
 without one) at the same tolerances.
 """
+import importlib.util
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +37,12 @@ from repro_torch.kernels.pna_aggregate import (pna_aggregate,
 from torch_parity import cuda_device, molecule_graphs  # noqa: F401
 
 
+# a weighted case's adjacency values: the kernel's function holds for any
+# finite weight, negative ones (which count in the sums but not in max or
+# min) and zero sums included
+WEIGHTS = (0, 0, 0, 0.5, 1, 2, -1)
+
+
 def _inputs(b, n, f, kind="random", seed=0):
     """(adj, feats) float32 numpy of one case."""
     rng = np.random.default_rng(seed)
@@ -49,6 +58,8 @@ def _inputs(b, n, f, kind="random", seed=0):
         feats = np.full((b, n, f), 1.7, np.float32)
     elif kind == "molecule":             # padded with isolated nodes
         adj, feats = molecule_graphs(b, n, f, seed, min_nodes=n // 2)
+    elif kind == "weighted":             # any finite edge weight
+        adj = rng.choice(np.array(WEIGHTS, np.float32), size=(b, n, n))
     else:
         raise ValueError(kind)
     return adj, feats
@@ -77,6 +88,8 @@ CASES = {
     "molecule_3x30x16": dict(b=3, n=30, f=16, kind="molecule"),
     "constant_2x12x7": dict(b=2, n=12, f=7, kind="constant"),
     "n1_3x1x5": dict(b=3, n=1, f=5),
+    "weighted_3x30x75": dict(b=3, n=30, f=75, kind="weighted"),
+    "weighted_2x12x7": dict(b=2, n=12, f=7, kind="weighted"),
 }
 
 
@@ -133,15 +146,53 @@ def test_cpu_tensors_route_to_plain_version():
 
 # the same as PNA_EDGE_CASES in chip_smoke.py, which runs them on the card
 # (case i drawn with seed i): the edge cases above, plus N = 33 and N = 128,
-# which cross the kernel's 32-row source tile, and F = 40 (a partial
-# feature block)
+# which cross a 32-source tile, F = 40, weighted adjacencies (one over
+# several source tiles), N = 31 (every graph's adjacency and features start
+# at another alignment), 5,000 graphs of N = 3 (more than the persistent
+# grid holds at once), F = 1, F = 300 (split into feature blocks) and
+# N = 600 (past a whole graph in shared memory)
 CARD_CASES = [
     dict(b=1, n=8, f=4), dict(b=2, n=30, f=75),
     dict(b=2, n=9, f=5, kind="zero"), dict(b=2, n=10, f=6, kind="full"),
     dict(b=3, n=30, f=16, kind="molecule"),
     dict(b=2, n=12, f=7, kind="constant"), dict(b=3, n=1, f=5),
     dict(b=3, n=33, f=75), dict(b=2, n=128, f=75, kind="molecule"),
-    dict(b=2, n=128, f=40)]
+    dict(b=2, n=128, f=40), dict(b=3, n=30, f=75, kind="weighted"),
+    dict(b=2, n=100, f=24, kind="weighted"), dict(b=4, n=31, f=75),
+    dict(b=5000, n=3, f=4), dict(b=4, n=30, f=1), dict(b=3, n=30, f=300),
+    dict(b=2, n=600, f=75)]
+
+
+def _chip_smoke():
+    """chip_smoke.py, loaded from the repo root (it imports no torch or
+    JAX at module level)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("ci", range(len(CARD_CASES)))
+def test_chip_smoke_draws_the_card_cases(ci):
+    """chip_smoke.py holds the kernel to the plain version at the same
+    cases, drawn from the same seeds, as this file."""
+    smoke = _chip_smoke()
+    assert smoke.PNA_EDGE_CASES[ci] == CARD_CASES[ci]
+    assert len(smoke.PNA_EDGE_CASES) == len(CARD_CASES)
+    for got, want in zip(smoke.pna_inputs(**CARD_CASES[ci], seed=ci),
+                         _inputs(**CARD_CASES[ci], seed=ci)):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("ci", range(len(CARD_CASES)))
+def test_plain_version_matches_reference_at_card_cases(ci):
+    kw = CARD_CASES[ci]
+    adj, feats = _inputs(**kw, seed=ci)
+    assert_blocks_close(
+        pna_aggregate_ref(torch.from_numpy(adj), torch.from_numpy(feats)),
+        jax_ref(jnp.asarray(adj), jnp.asarray(feats)), kw["f"])
 
 
 @pytest.mark.parametrize("ci", range(len(CARD_CASES)))
