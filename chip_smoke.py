@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py   # SIFT1M-shaped LCPS index (n = 1,000,000),
                             # two-tower retrieval_cand (n = 1,048,576),
-                            # embedding_bag and PNA molecule inference
+                            # embedding_bag, PNA molecule inference and
+                            # the sharded HCPS serving engine (n = 2^20)
     python3 chip_smoke.py --baseline DIR   # also time the gather_distance.cu,
                             # neighbor_expand.cu, filtered_topk.cu and
                             # pna_aggregate.cu in DIR (an earlier version)
@@ -88,6 +89,38 @@ Phases, each printed on its own line:
            request time and graphs/s; 8 requests against a CPU copy
            (logits within atol 2e-3).  With ``--profile``, one request
            traced: pna_aggregate's device launches and time.
+  engine   the sharded serving engine of ``python -m
+           repro_torch.launch.serve`` at LAION-1M scale: HCPS data
+           (``make_hcps_dataset(n=2^20, d=512, seed=0)``: 4,096 clusters,
+           30 keywords, captions, 120 dates), ``EngineConfig(batch_size=32,
+           k=10, n_shards=4)``, ``AcornConfig(M=16, gamma=12, m_beta=32,
+           ef_search=96)``; data and build seconds, peak memory, index
+           bytes.  gather_distance (d = 512, l2 and ip, 10 % -1 ids) and
+           neighbor_expand (compress and two_hop, m = 16, m_beta = 32) held
+           against their plain versions on shard 0's graph and timed
+           (``other_shapes`` entries with ``phase: engine``).  1,024
+           ``contains`` queries through ``engine.serve`` in batches of 32
+           after one warm-up batch, counters zeroed just before and read
+           just after (``engine_launches`` of both records): QPS, batch
+           times, route split, recall@10 per route against ``masked_topk``
+           over the whole corpus, every returned id checked against its
+           predicate; 64 queries of each of ``ENGINE_KINDS`` (the regex
+           pass over 2^20 captions logged on its own line); the first 64
+           queries of the closed loop and of each kind forced onto the
+           graph route at ef 64 and 256, with the generator clusters their
+           exact top-10 span (``graph_forced``); an open loop of
+           256 requests of 4 queries through ``ServingRuntime`` at seeded
+           Poisson arrivals, 50 % of the closed loop's QPS (sustained QPS,
+           p50 / p99, shed, dispatches, batch sizes; every served query's
+           ids held to the closed loop's, near ties counted); an overload
+           of 64 requests at once against ``max_queue=64`` (sheds sentinels,
+           raises nothing); a failover drill (a mirrored failed shard
+           returns the healthy ids; a hard loss is flagged degraded and
+           returns no id of that shard; ``rebuild_shard`` returns the
+           healthy ids); 16 graph-route queries against a CPU copy of the
+           four shards (``convert.engine_from_arrays``), ids identical
+           except at near ties.  With ``--profile``, one 32-query batch
+           traced.
 
 The second-to-last lines are the ``{"kernels": [...]}`` record and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -192,6 +225,24 @@ PNA_EDGE_CASES = [
     dict(b=2, n=100, f=24, kind="weighted"), dict(b=4, n=31, f=75),
     dict(b=5000, n=3, f=4), dict(b=4, n=30, f=1), dict(b=3, n=30, f=300),
     dict(b=2, n=600, f=75)]
+
+# HCPS serving at LAION-1M scale (python -m repro_torch.launch.serve's
+# engine): the reference's serve_1m shape (src/repro/configs/acorn.py), 2^20
+# rows at d = 512 (LAION's CLIP width), 4 corpus shards of 262,144 rows
+ENGINE_N, ENGINE_D, ENGINE_SHARDS = 1 << 20, 512, 4
+ENGINE_M, ENGINE_GAMMA, ENGINE_M_BETA, ENGINE_EF_SEARCH = 16, 12, 32, 96
+ENGINE_BATCH, ENGINE_K = 32, 10
+ENGINE_CLOSED = 1024       # `contains` queries, correlation none, seed 1
+ENGINE_KIND_QUERIES = 64   # each of ENGINE_KINDS, seed 2
+ENGINE_KINDS = (("between", "none"), ("contains+between", "none"),
+                ("regex", "none"), ("contains", "pos"), ("contains", "neg"))
+OPEN_REQUESTS, OPEN_SIZE = 256, 4   # open loop: requests of 4 queries
+OPEN_LOAD = 0.5                     # of the closed loop's QPS
+OVERLOAD_REQUESTS, OVERLOAD_QUEUE = 64, 64
+ENGINE_PARITY = 16                  # graph-route queries on a CPU copy
+# the first queries of the closed loop and of each kind, forced onto the
+# graph route at each ef: does graph recall rise with the search's budget?
+ENGINE_SWEEP_QUERIES, ENGINE_EF_SWEEP = 64, (64, 256)
 
 # neighbor_expand's edge cases, the same as CARD_CASES in
 # tests/test_torch_neighbor_expand.py (case i is drawn with seed i by
@@ -1505,6 +1556,395 @@ def bag_phases(dev, flush, table) -> dict:
     return rec
 
 
+def sync(dev) -> None:
+    """Wait for ``dev`` (a no-op on the CPU)."""
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def engine_workloads(ds, n_closed: int = ENGINE_CLOSED,
+                     n_kind: int = ENGINE_KIND_QUERIES) -> tuple:
+    """The engine phase's workloads over the HCPS dataset ``ds``, as
+    ``repro_torch.data.make_workload`` draws them: the closed loop's
+    ``contains`` queries (correlation none, seed 1) and one workload of
+    each of ENGINE_KINDS (seed 2); returns (closed, {name: workload})."""
+    from repro_torch.data import make_workload
+    closed = make_workload(ds, kind="contains", n_queries=n_closed,
+                           k=ENGINE_K, seed=1)
+    kinds = {}
+    for kind, cor in ENGINE_KINDS:
+        wl = make_workload(ds, kind=kind, correlation=cor, n_queries=n_kind,
+                           k=ENGINE_K, seed=2)
+        kinds[wl.name] = wl
+    return closed, kinds
+
+
+def open_loop_arrivals(n_requests: int, rate: float, seed: int = 0):
+    """Seeded Poisson arrival times (seconds from the start) of
+    ``n_requests`` requests at ``rate`` requests/s, drawn as
+    ``repro_torch.launch.serve`` draws them."""
+    rng = np.random.default_rng(seed)
+    return np.cumsum(rng.exponential(1.0 / rate, size=n_requests))
+
+
+def corpus_masks(engine, program):
+    """(B, n) pass-masks over the engine's whole corpus: each shard's
+    masks side by side (the shards hold contiguous rows in order), so
+    regex leaves reuse each shard's cached bitmaps."""
+    import torch
+    return torch.cat([program.evaluate(s.index.table)
+                      for s in engine.shards], dim=1)
+
+
+def check_served(res, masks, what: str) -> dict:
+    """Every returned id passes its query's predicate and has a finite
+    distance; returns the route split."""
+    import torch
+    ids = res.ids
+    valid = ids >= 0
+    passes = torch.gather(masks, 1, ids.clamp(min=0).long())
+    if not bool((passes | ~valid).all()):
+        raise AssertionError(f"{what}: a returned id fails its predicate")
+    if not torch.equal(torch.isfinite(res.dists), valid):
+        raise AssertionError(f"{what}: -1 ids and infinite dists disagree")
+    return {str(r): int((res.routes == r).sum())
+            for r in sorted(set(res.routes))}
+
+
+def route_recall(res, gt) -> dict:
+    """recall@k of ``res`` against ``gt`` on each route that served a
+    query (``mixed``: the shards' sketches chose both)."""
+    import torch
+    from repro_torch.core import recall_at_k
+    out = {}
+    for route in ("graph", "prefilter", "mixed"):
+        sel = np.nonzero(res.routes == route)[0]
+        if len(sel):
+            t = torch.as_tensor(sel, device=res.ids.device)
+            out[route] = round(recall_at_k(res.ids[t], gt[t]), 4)
+    return out
+
+
+def graph_sweep(engine, xq, program, gt, cluster_of) -> dict:
+    """recall@k of the first ENGINE_SWEEP_QUERIES queries, each forced onto
+    the graph route, at every ef of ENGINE_EF_SWEEP, and the mean count of
+    generator clusters among their exact top-k (``gt_clusters``)."""
+    from repro_torch.core import SearchRequest, recall_at_k
+    q = min(ENGINE_SWEEP_QUERIES, xq.shape[0])
+    out = {}
+    for ef in ENGINE_EF_SWEEP:
+        r = engine.serve(SearchRequest(xq=xq[:q],
+                                       predicates=program.take(slice(0, q)),
+                                       k=ENGINE_K, ef=ef, route="graph"))
+        out[f"ef{ef}"] = round(recall_at_k(r.ids, gt[:q]), 4)
+    out["gt_clusters"] = round(float(np.mean(
+        [len(np.unique(cluster_of[g[g >= 0]]))
+         for g in gt[:q].cpu().numpy()])), 3)
+    return out
+
+
+def engine_build(dev, n: int = ENGINE_N, d: int = ENGINE_D) -> tuple:
+    """The HCPS corpus and the launcher's engine over it on ``dev``:
+    ``make_hcps_dataset(n, d, seed=0)`` (its default 4,096 clusters at
+    n = 2^20, 3 keywords a cluster, 30 keywords, 120 dates),
+    ``EngineConfig(batch_size=32, k=10, n_shards=4)`` and
+    ``AcornConfig(M=16, gamma=12, m_beta=32, ef_search=96)``; logs the
+    data and build seconds, peak memory and index bytes."""
+    import torch
+    from repro_torch.core import AcornConfig
+    from repro_torch.data import make_hcps_dataset
+    from repro_torch.serve import EngineConfig, ServingEngine
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ds = make_hcps_dataset(n=n, d=d, seed=0, device=dev)
+    sync(dev)
+    data_s = time.perf_counter() - t0
+    acorn = AcornConfig(M=ENGINE_M, gamma=ENGINE_GAMMA, m_beta=ENGINE_M_BETA,
+                        ef_search=ENGINE_EF_SEARCH)
+    cfg = EngineConfig(batch_size=ENGINE_BATCH, k=ENGINE_K,
+                       n_shards=ENGINE_SHARDS)
+    t0 = time.perf_counter()
+    engine = ServingEngine(ds.x, ds.table, acorn, cfg, seed=0, device=dev)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    g = engine.shards[0].index.graph
+    log("engine", n=n, d=d, shards=ENGINE_SHARDS,
+        clusters=len(ds.cluster_keywords), M=ENGINE_M, gamma=ENGINE_GAMMA,
+        m_beta=ENGINE_M_BETA, batch=ENGINE_BATCH, ef=cfg.ef,
+        data_s=f"{data_s:.3f}", build_s=f"{build_s:.3f}",
+        shard_build_s=[round(s.index.build_seconds, 3)
+                       for s in engine.shards],
+        max_memory_allocated=(torch.cuda.max_memory_allocated() - mem0
+                              if cuda else "not_measured"),
+        index_bytes=sum(s.index.index_bytes for s in engine.shards),
+        vector_bytes=ds.x.numel() * ds.x.element_size(),
+        shard0_levels=[tuple(t.shape) for t in g.neighbors])
+    return ds, engine
+
+
+def engine_kernels(engine, closed, flush, base, by_name) -> None:
+    """gather_distance (d = 512, l2 and ip, 10 % -1 ids) and
+    neighbor_expand (compress and two_hop, m = 16, m_beta = 32, with and
+    without the pass mask and visited set) against their plain versions
+    on shard 0's graph and the first ENGINE_BATCH closed-loop queries; both
+    timed as the other phases time them and added to their records'
+    ``other_shapes``."""
+    import torch
+    from repro_torch.core import neighbor_rows
+    from repro_torch.kernels.gather_distance import (gather_distance_cuda,
+                                                     gather_distance_ref)
+    shard = engine.shards[0].index
+    g, dev = shard.graph, shard.x.device
+    n = shard.x.shape[0]
+    rng = np.random.default_rng(4)
+    nodes = torch.as_tensor(rng.integers(0, n, size=ENGINE_BATCH),
+                            device=dev)
+    q = closed.xq[:ENGINE_BATCH].contiguous()
+    pm = engine.compile(closed.predicates[:ENGINE_BATCH]).evaluate(
+        shard.table).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    vis = torch.rand((ENGINE_BATCH, n), generator=gen, device=dev) < 0.02
+    ids = neighbor_rows(g, 0, nodes)[:, :ENGINE_M].contiguous()
+    ids[torch.as_tensor(rng.random(ids.shape) < 0.1, device=dev)] = -1
+    err = 0.0
+    for metric in ("l2", "ip"):
+        got = gather_distance_cuda(ids, q, shard.x, metric)
+        torch.cuda.synchronize()
+        err = max(err, assert_gather_close(
+            got, gather_distance_ref(ids, q, shard.x, metric),
+            f"gather_distance engine {metric}"))
+    gd = measure_gather(ids, q, shard.x, "l2", flush, base,
+                        f"engine shard 0, d={shard.x.shape[1]}")
+    gd["max_abs_err"] = max(err, gd["max_abs_err"])
+    row0 = neighbor_rows(g, 0, nodes).contiguous()
+    calls = [(row0, g.neighbors[0], g.pos[0], pm, vis,
+              dict(strategy=strategy, m=ENGINE_M, m_beta=mb))
+             for strategy, mb in (("compress", ENGINE_M_BETA),
+                                  ("two_hop", 0))]
+    log("kernels", kernel="neighbor_expand", path="engine",
+        cases=check_expand(calls, "engine rows"), bit_identical=True)
+    ne = measure_expand((row0, g.neighbors[0], g.pos[0], pm, vis),
+                        dict(strategy="compress", m=ENGINE_M,
+                             m_beta=ENGINE_M_BETA), flush, base,
+                        f"engine shard 0, M={ENGINE_M}")
+    for name, rec in (("gather_distance", gd), ("neighbor_expand", ne)):
+        by_name[name].setdefault("other_shapes", []).append(
+            dict(phase="engine", **rec))
+
+
+def engine_serving(dev, ds, engine, closed, kinds, profile: bool) -> dict:
+    """The engine's main path and its drills on ``dev``: the counted closed
+    loop through ``engine.serve`` (after one warm-up batch), every workload
+    kind, the open loop and the overload through ``ServingRuntime``, the
+    failover drill, the CPU-copy parity and, with ``profile``, one traced
+    batch.  Any failed check raises.  Returns the closed loop's launches
+    of each of the port's kernels by name."""
+    import torch
+    from repro_torch.convert import engine_from_arrays
+    from repro_torch.core import SearchRequest, SearchResult, masked_topk
+    from repro_torch.serve import (EngineConfig, RuntimeConfig,
+                                   ServingRuntime)
+    k, bsz = ENGINE_K, ENGINE_BATCH
+    program = engine.compile(closed.predicates)
+    n_closed = closed.xq.shape[0]
+
+    def chunk(s, e):
+        return closed.xq[s:e], program.take(slice(s, e))
+
+    def request(i):
+        """Request i of OPEN_SIZE closed-loop queries (wrapping around)."""
+        i %= n_closed // OPEN_SIZE
+        xq, prog = chunk(i * OPEN_SIZE, (i + 1) * OPEN_SIZE)
+        return SearchRequest(xq=xq, predicates=prog, k=k)
+
+    # ---- closed loop: counters zeroed just before, read just after ----
+    engine.serve(*chunk(0, bsz))
+    sync(dev)
+    counters = all_launchers()
+    for fn in counters:
+        fn.launches = 0
+    results, secs = [], []
+    for s in range(0, n_closed, bsz):
+        t0 = time.perf_counter()
+        results.append(engine.serve(*chunk(s, s + bsz)))
+        sync(dev)
+        secs.append(time.perf_counter() - t0)
+    launches = {fn.__name__[:-len("_cuda")]: fn.launches for fn in counters}
+    res = SearchResult.concatenate(results)
+    masks = corpus_masks(engine, program)
+    gt, _ = masked_topk(closed.xq, ds.x, masks, k)
+    qps = n_closed / sum(secs)
+    ms = np.array(secs) * 1e3
+    recall = route_recall(res, gt)
+    log("engine", loop="closed", queries=n_closed, qps=f"{qps:.2f}",
+        batch_p50_ms=f"{np.percentile(ms, 50):.3f}",
+        batch_p99_ms=f"{np.percentile(ms, 99):.3f}",
+        batch_ms=[round(float(v), 2) for v in ms],
+        routes=check_served(res, masks, "closed loop"),
+        recall_at_10=recall,
+        selectivity=f"{float(masks.float().mean()):.4f}",
+        launches={k_: v for k_, v in launches.items() if v})
+    log("engine", loop="closed", graph_forced=graph_sweep(
+        engine, closed.xq, program, gt, ds.cluster_of))
+    if recall.get("prefilter", 1.0) < 0.999:
+        raise AssertionError("closed loop: exact-route recall < 0.999")
+
+    # ---- every workload kind ----
+    for name, wl in kinds.items():
+        prog = engine.compile(wl.predicates)
+        if prog.regex_leaves:   # the host regex pass, on its own line
+            t0 = time.perf_counter()
+            for sh in engine.shards:
+                for col, pat in prog.regex_leaves:
+                    sh.index.table.regex_mask(col, pat)
+            log("engine", kind=name, regex_patterns=len(prog.regex_leaves),
+                rows=ds.n, regex_host_s=f"{time.perf_counter() - t0:.3f}")
+        t0 = time.perf_counter()
+        r = engine.serve(wl.xq, prog)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        m = corpus_masks(engine, prog)
+        g_, _ = masked_topk(wl.xq, ds.x, m, k)
+        log("engine", kind=name, queries=wl.xq.shape[0],
+            seconds=f"{dt:.3f}", routes=check_served(r, m, name),
+            recall_at_10=route_recall(r, g_),
+            selectivity=f"{float(m.float().mean()):.4f}",
+            graph_forced=graph_sweep(engine, wl.xq, prog, g_, ds.cluster_of))
+
+    # ---- open loop: seeded Poisson arrivals through the runtime ----
+    rate = OPEN_LOAD * qps / OPEN_SIZE
+    n_req = min(OPEN_REQUESTS, n_closed // OPEN_SIZE)
+    arrivals = open_loop_arrivals(n_req, rate, seed=0)
+    tickets = []
+    t0 = time.perf_counter()
+    with ServingRuntime(engine, RuntimeConfig(
+            max_queue=1024, coalesce_deadline=0.01)) as rt:
+        for i, ta in enumerate(arrivals):
+            wait = t0 + float(ta) - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            tickets.append(rt.submit(request(i)))
+        outs = [t.result(timeout=600) for t in tickets]
+    wall = time.perf_counter() - t0
+    st = rt.stats()
+    opened = SearchResult.concatenate(outs)
+    served = torch.as_tensor(np.nonzero(~opened.shed)[0], device=dev)
+    err, ties = assert_topk_match(
+        opened.ids[served], opened.dists[served], res.ids[served],
+        res.dists[served], closed.xq[served], ds.x, "l2",
+        "open loop vs a direct engine.serve of the same queries")
+    log("engine", loop="open", requests=n_req, request_size=OPEN_SIZE,
+        rate_rps=f"{rate:.3f}", seconds=f"{wall:.3f}",
+        sustained_qps=f"{st.qps:.2f}",
+        latency_p50_ms=f"{st.latency_p50 * 1e3:.3f}",
+        latency_p99_ms=f"{st.latency_p99 * 1e3:.3f}", shed=st.shed,
+        dispatches=st.dispatches,
+        batch_hist=dict(sorted(st.batch_hist.items())),
+        served_equal_direct=True, near_ties=ties, max_abs_err=err)
+
+    # ---- overload: more than max_queue at once sheds, never raises ----
+    rt = ServingRuntime(engine, RuntimeConfig(
+        max_queue=OVERLOAD_QUEUE, coalesce_deadline=0.01)).start()
+    try:
+        tickets = [rt.submit(request(i)) for i in range(OVERLOAD_REQUESTS)]
+    finally:
+        rt.stop(drain=True)
+    outs = [t.result(timeout=600) for t in tickets]
+    shed = [o for o in outs if o.shed.all()]
+    if not shed or len(shed) == len(outs):
+        raise AssertionError(f"overload: {len(shed)} of {len(outs)} "
+                             "requests shed")
+    for o in shed:
+        if not (bool((o.ids == -1).all()) and bool(torch.isinf(o.dists)
+                                                    .all())):
+            raise AssertionError("overload: a shed result is not the "
+                                 "-1 / inf sentinel")
+    if any(bool(o.shed.any()) and not bool(o.shed.all()) for o in outs):
+        raise AssertionError("overload: a request was shed in part")
+    log("engine", loop="overload", requests=OVERLOAD_REQUESTS,
+        max_queue=OVERLOAD_QUEUE, shed_requests=len(shed),
+        shed_queries=rt.stats().shed, raised=False)
+
+    # ---- failover drill ----
+    drill = min(2 * bsz, n_closed)
+    healthy = res.ids[:drill]
+    engine.cfg.duplicate_dispatch = True
+    engine.fail_shard(1)
+    before = engine.stats["duplicated_dispatches"]
+    mirrored = engine.serve(*chunk(0, drill))
+    if not torch.equal(mirrored.ids, healthy):
+        raise AssertionError("failover: mirrored ids differ from healthy")
+    engine.cfg.duplicate_dispatch = False
+    lost = engine.serve(*chunk(0, drill))
+    lo, hi = engine.shards[1].base, engine.shards[2].base
+    if not lost.degraded.all() or bool(((lost.ids >= lo)
+                                        & (lost.ids < hi)).any()):
+        raise AssertionError("hard loss: not degraded, or an id of shard 1")
+    t0 = time.perf_counter()
+    engine.rebuild_shard(1)
+    sync(dev)
+    rebuild_s = time.perf_counter() - t0
+    rebuilt = engine.serve(*chunk(0, drill))
+    same = torch.equal(rebuilt.ids, healthy)
+    log("engine", drill="failover", queries=drill,
+        mirrored_equal=True,
+        duplicated_dispatches=engine.stats["duplicated_dispatches"] - before,
+        hard_loss_degraded=True, rebuild_s=f"{rebuild_s:.3f}",
+        rebuilt_equal=same,
+        rebuilt_rows_differing=int((rebuilt.ids != healthy).any(dim=1)
+                                   .sum()))
+    if not same:
+        raise AssertionError("rebuild_shard(1): ids differ from healthy")
+
+    # ---- parity: the card's engine vs a CPU copy of its four shards ----
+    t0 = time.perf_counter()
+    gsel = np.nonzero(res.routes == "graph")[0][:ENGINE_PARITY]
+
+    def arrays(sh):
+        t, gr = sh.index.table, sh.index.graph
+        return dict(
+            graph=dict(neighbors=[a.cpu().numpy() for a in gr.neighbors],
+                       pos=[a.cpu().numpy() for a in gr.pos],
+                       node_ids=[a.cpu().numpy() for a in gr.node_ids],
+                       entry_point=gr.entry_point.cpu().numpy(),
+                       levels=gr.levels.cpu().numpy()),
+            x=sh.index.x.cpu().numpy(),
+            table=dict(int_cols={c: v.cpu().numpy()
+                                 for c, v in t.int_cols.items()},
+                       bitset_cols={c: v.cpu().numpy().view(np.uint32)
+                                    for c, v in t.bitset_cols.items()},
+                       str_cols=dict(t.str_cols),
+                       n_keywords=dict(t.n_keywords)))
+
+    cpu_engine = engine_from_arrays(
+        [arrays(sh) for sh in engine.shards], engine.acorn,
+        EngineConfig(batch_size=bsz, k=k, n_shards=len(engine.shards)),
+        seed=0, device="cpu")
+    ti = torch.as_tensor(gsel, device=dev)
+    req = dict(predicates=program.take(gsel), k=k)
+    on_card = engine.search_batch(SearchRequest(xq=closed.xq[ti], **req))
+    on_cpu = cpu_engine.search_batch(SearchRequest(xq=closed.xq[ti].cpu(),
+                                                   **req))
+    if not np.array_equal(on_card.routes, on_cpu.routes):
+        raise AssertionError("card vs CPU engine: routes differ")
+    err, ties = assert_topk_match(
+        on_card.ids, on_card.dists, on_cpu.ids, on_cpu.dists,
+        closed.xq[ti].cpu(), cpu_engine._x, "l2", "engine card vs CPU")
+    log("parity", path="engine", queries=len(gsel), near_ties=ties,
+        max_abs_err=err, seconds=f"{time.perf_counter() - t0:.1f}")
+    del cpu_engine
+
+    if profile:
+        profile_call(lambda: engine.search_batch(SearchRequest(
+            xq=closed.xq[:bsz], predicates=program.take(slice(0, bsz)),
+            k=k)), path="engine", batch=bsz)
+    return launches
+
+
 def all_launchers() -> list:
     """The launch-counted wrapper of every kernel of the port."""
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda
@@ -1520,9 +1960,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one request per route, one "
-                         "retrieval request and one PNA request with "
-                         "torch.profiler and print where the device time "
-                         "goes")
+                         "retrieval request, one PNA request and one "
+                         "engine batch with torch.profiler and print where "
+                         "the device time goes")
     ap.add_argument("--baseline", metavar="DIR",
                     help="a directory holding an earlier gather_distance.cu, "
                          "neighbor_expand.cu, filtered_topk.cu and "
@@ -1757,6 +2197,22 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
     records.append(pna_phases(dev, flush, args.profile, base, floor_ms))
+
+    # ---- engine: HCPS serving at LAION-1M scale, four shards ----
+    t0 = time.perf_counter()
+    ds_e, engine = engine_build(dev)
+    closed, kinds = engine_workloads(ds_e)
+    engine_kernels(engine, closed, flush, base, by_name)
+    engine_launches = engine_serving(dev, ds_e, engine, closed, kinds,
+                                     args.profile)
+    for name in ("gather_distance", "neighbor_expand"):
+        if engine_launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched in the engine's "
+                                 "closed loop")
+        by_name[name]["engine_launches"] = engine_launches[name]
+    del engine, ds_e
+    torch.cuda.empty_cache()
+    log("engine", seconds=f"{time.perf_counter() - t0:.1f}")
 
     log("total", seconds=f"{time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": records}))

@@ -17,6 +17,6 @@ def get_arch(name: str):
     if name not in _MODULES:
         raise NotImplementedError(
             f"arch {name!r} is not ported (ported: {ARCH_IDS}); the other "
-            "arches wait in ROADMAP.md queue 1 (item 9 for models/, item 8 "
+            "arches wait in ROADMAP.md queue 1 (item 5 for models/, item 3 "
             "for the mesh-only 'acorn')")
     return importlib.import_module(_MODULES[name]).ARCH

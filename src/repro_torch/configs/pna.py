@@ -10,7 +10,7 @@ Shapes (as in the reference):
 Ported here: the model, its parameters and the dense-batched inference
 ``repro_torch.models.gnn.forward_dense`` (the path that reaches the
 ``pna_aggregate`` kernel).  Every cell of the reference is a train step,
-and those wait for the losses and AdamW (ROADMAP.md queue 1 item 9), so
+and those wait for the losses and AdamW (ROADMAP.md queue 1 item 5), so
 ``step_fn`` and ``abstract_inputs`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -58,7 +58,7 @@ REDUCED_SHAPES: Dict[str, Dict] = {
 }
 
 _NOT_PORTED = ("the PNA train steps are not ported yet (the losses and "
-               "AdamW: ROADMAP.md queue 1 item 9); inference is "
+               "AdamW: ROADMAP.md queue 1 item 5); inference is "
                "repro_torch.models.gnn.forward_dense")
 
 

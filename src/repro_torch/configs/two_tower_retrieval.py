@@ -6,8 +6,8 @@ under a structured predicate (a (B, n) mask): ACORN's hybrid-search
 problem.  Ported here on one device: the ``serve`` step and the
 ``retrieval`` step ``retrieve_local`` (user tower + ``filtered_topk``).
 The reference's ``filtered_retrieval_step`` over a device mesh waits for
-``distributed/`` (ROADMAP queue 1 item 8), and the ``train`` step for the
-losses and the optimizer (queue 1 item 9).
+``distributed/`` (ROADMAP queue 1 item 3), and the ``train`` step for the
+losses and the optimizer (queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -59,11 +59,11 @@ class TwoTowerArch(RecsysArchBase):
         if kind == "train":
             raise NotImplementedError(
                 "the two-tower train step is not ported yet (two_tower_loss "
-                "and AdamW: ROADMAP.md queue 1 item 9)")
+                "and AdamW: ROADMAP.md queue 1 item 5)")
         if mesh is not None:
             raise NotImplementedError(
                 "two-tower steps over a device mesh are not ported yet "
-                "(filtered_retrieval_step: ROADMAP.md queue 1 item 8)")
+                "(filtered_retrieval_step: ROADMAP.md queue 1 item 3)")
         if kind == "serve":
             # online scoring: user embedding . embedding of the request item
             def serve(model: TwoTower, batch):
@@ -83,7 +83,7 @@ class TwoTowerArch(RecsysArchBase):
         if spec["kind"] == "train":
             raise NotImplementedError(
                 "train inputs need the optimizer state (AdamW: ROADMAP.md "
-                "queue 1 item 9)")
+                "queue 1 item 5)")
         params = self.abstract_params(cfg)
         b = spec["batch"]
         batch = self._batch_struct(cfg, b)

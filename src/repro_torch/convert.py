@@ -1,10 +1,11 @@
 """Carry the JAX reference's state across, as numpy arrays.
 
-The JAX package's ``LayeredGraph``, ``AttributeTable`` and model
-parameter trees are turned into numpy by the caller (``np.asarray`` on
-each field or leaf); these functions build the port's counterparts from
-that numpy alone, so this module never needs JAX.  The parity tests use
-them to search the reference's own graph and run its own weights.
+The JAX package's ``LayeredGraph``, ``AttributeTable``, serving-engine
+shards and model parameter trees are turned into numpy by the caller
+(``np.asarray`` on each field or leaf); these functions build the port's
+counterparts from that numpy alone, so this module never needs JAX.  The
+parity tests use them to search the reference's own graphs and run its
+own weights.
 """
 from __future__ import annotations
 
@@ -14,11 +15,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import LayeredGraph
-from repro_torch.core.predicates import AttributeTable
+from repro_torch.core.index import AcornConfig, HybridIndex
+from repro_torch.core.predicates import AttributeTable, SelectivitySketch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.gnn import PNA, PNAConfig, set_pna_params
 from repro_torch.models.recsys import (TwoTower, TwoTowerConfig,
                                        set_two_tower_params)
+from repro_torch.serve.engine import EngineConfig, ServingEngine
 
 
 def _i32(a, dev) -> torch.Tensor:
@@ -59,6 +62,44 @@ def table_from_arrays(int_cols: Mapping[str, np.ndarray],
         str_cols={k: np.asarray(v, dtype=object)
                   for k, v in (str_cols or {}).items()},
         n_keywords=dict(n_keywords or {}))
+
+
+def engine_from_arrays(shards: Sequence[Mapping], acorn: AcornConfig,
+                       cfg: EngineConfig, seed: int = 0,
+                       device: DeviceLike = "cuda") -> ServingEngine:
+    """A :class:`ServingEngine` over shards given as numpy, in id order.
+
+    Each shard is a mapping with ``graph`` (the keyword arguments of
+    :func:`graph_from_arrays` but ``device``), ``x`` ((n_s, d) float32)
+    and ``table`` (those of :func:`table_from_arrays`); a shard's first
+    global id is the count of the rows before it.  Shard ``s`` gets the
+    sketch a build with ``seed + s`` draws, as ``ServingEngine`` builds
+    it.  The engine's corpus, which
+    ``rebuild_shard`` rebuilds from, is the shards' rows concatenated;
+    each shard's vectors are a view of it."""
+    dev = resolve_device(device)
+    x = torch.from_numpy(np.concatenate(
+        [np.asarray(s["x"], dtype=np.float32) for s in shards])).to(dev)
+    tables = [table_from_arrays(device=dev, **s["table"]) for s in shards]
+    first = tables[0]
+    table = AttributeTable(
+        int_cols={c: torch.cat([t.int_cols[c] for t in tables])
+                  for c in first.int_cols},
+        bitset_cols={c: torch.cat([t.bitset_cols[c] for t in tables])
+                     for c in first.bitset_cols},
+        str_cols={c: np.concatenate([t.str_cols[c] for t in tables])
+                  for c in first.str_cols},
+        n_keywords=dict(first.n_keywords))
+    indexes, lo = [], 0
+    for i, (s, t) in enumerate(zip(shards, tables)):
+        hi = lo + t.n
+        indexes.append(HybridIndex(
+            x=x[lo:hi], table=t,
+            graph=graph_from_arrays(device=dev, **s["graph"]), config=acorn,
+            sketch=SelectivitySketch.build(t, seed=seed + i)))
+        lo = hi
+    return ServingEngine(x, table, acorn, cfg, seed=seed, device=dev,
+                         indexes=indexes)
 
 
 def two_tower_params_from_arrays(tree: Mapping, cfg: TwoTowerConfig,

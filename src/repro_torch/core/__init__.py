@@ -2,10 +2,11 @@
 data, in PyTorch."""
 from .predicates import (AttributeTable, Predicate, Equals, OneOf, Between,
                          ContainsAny, RegexMatch, And, Or, Not, TruePredicate,
-                         SelectivitySketch, pack_multihot, keywords_to_bitset)
+                         SelectivitySketch, evaluate, evaluate_batch,
+                         selectivity, pack_multihot, keywords_to_bitset)
 from .plan import (ExecutionSpec, PredicateProgram, SearchRequest,
                    SearchResult, TableSchema, PackedColumns, admission_key,
-                   compile_predicates, evaluate_program,
+                   compile_predicates, evaluate_predicates, evaluate_program,
                    pack_columns, regex_aux, resolve_execution_spec,
                    sentinel_result)
 from .graph import (LayeredGraph, assign_levels, average_out_degree,
@@ -20,14 +21,16 @@ from .batched import (DEFAULT_BUCKETS, VariantCache, bucket_for,
                       search_batch)
 from .baselines import prefilter_search
 from .index import AcornConfig, HybridIndex
+from .correlation import min_dist, query_correlation
 
 __all__ = [
     "AttributeTable", "Predicate", "Equals", "OneOf", "Between",
     "ContainsAny", "RegexMatch", "And", "Or", "Not", "TruePredicate",
-    "SelectivitySketch", "pack_multihot", "keywords_to_bitset",
+    "SelectivitySketch", "evaluate", "evaluate_batch", "selectivity",
+    "pack_multihot", "keywords_to_bitset",
     "ExecutionSpec", "PredicateProgram", "SearchRequest", "SearchResult",
     "TableSchema", "PackedColumns", "admission_key", "compile_predicates",
-    "evaluate_program", "pack_columns", "regex_aux",
+    "evaluate_predicates", "evaluate_program", "pack_columns", "regex_aux",
     "resolve_execution_spec", "sentinel_result",
     "LayeredGraph", "assign_levels", "average_out_degree", "level_constant",
     "memory_bytes", "neighbor_rows",
@@ -39,4 +42,5 @@ __all__ = [
     "DEFAULT_BUCKETS", "VariantCache", "bucket_for", "coalesce_take",
     "mesh_buckets", "pad_rows", "plan_chunks", "search_batch",
     "prefilter_search", "AcornConfig", "HybridIndex",
+    "min_dist", "query_correlation",
 ]

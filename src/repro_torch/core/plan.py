@@ -37,8 +37,8 @@ Tensor = torch.Tensor
 # ExecutionSpec
 # ---------------------------------------------------------------------------
 
-_WAITS = ("waits for the port of distributed/ (ROADMAP.md, queue 1, "
-          "'distributed/'); this slice runs one device")
+_WAITS = ("waits for the port of distributed/ (ROADMAP.md, queue 1 item "
+          "3); the port runs one device")
 
 
 @dataclass(frozen=True)
@@ -157,9 +157,13 @@ class SearchResult:
         return tuple(self)[i]
 
     def take(self, idx) -> "SearchResult":
-        """Row-subset the result."""
-        idx = np.asarray(idx)
-        tidx = torch.as_tensor(idx, dtype=torch.int64, device=self.ids.device)
+        """Row-subset the result (a slice or an index array)."""
+        if isinstance(idx, slice):
+            tidx = idx
+        else:
+            idx = np.asarray(idx)
+            tidx = torch.as_tensor(idx, dtype=torch.int64,
+                                   device=self.ids.device)
         stats = {name: np.asarray(v)[idx] for name, v in self.stats.items()}
         return SearchResult(
             ids=self.ids[tidx], dists=self.dists[tidx], stats=stats,
@@ -371,8 +375,10 @@ class PredicateProgram:
                 len(self.regex_leaves))
 
     def take(self, idx) -> "PredicateProgram":
-        """Row-subset the program (e.g. the pre-filter-routed queries)."""
-        idx = np.asarray(idx)
+        """Row-subset the program (e.g. the pre-filter-routed queries) by a
+        slice or an index array."""
+        if not isinstance(idx, slice):
+            idx = np.asarray(idx)
         return PredicateProgram(
             ops=self.ops[idx], slot=self.slot[idx], lo=self.lo[idx],
             hi=self.hi[idx], vals=self.vals[idx], nval=self.nval[idx],
@@ -638,3 +644,11 @@ def evaluate_program(prog: PredicateProgram, ints: Tensor, bitsets: Tensor,
     if n_valid is not None:
         out = out & (torch.arange(n, device=dev)[None] < n_valid)
     return out
+
+
+def evaluate_predicates(preds: Sequence[Predicate],
+                        table: AttributeTable) -> Tensor:
+    """One-shot convenience: compile against ``table``'s schema and run
+    the fused pass.  The program-compiled, bit-identical replacement for
+    :func:`repro_torch.core.predicates.evaluate_batch`."""
+    return compile_predicates(preds, table).evaluate(table)

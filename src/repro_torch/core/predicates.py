@@ -5,9 +5,10 @@ A predicate is a small expression tree over the columns of an
 (TripClick), ``ContainsAny`` over keyword lists (TripClick areas, LAION
 keywords), ``RegexMatch`` over captions (LAION), and arbitrary boolean
 combinations.  Trees compile into one columnar program
-(``core/plan.py``) evaluated in one pass into (B, n) pass-masks.  Regex
-has no tensor form: its leaves are evaluated on the host with ``re`` into
-cached bitmaps.
+(``core/plan.py``) evaluated in one pass into (B, n) pass-masks;
+:func:`evaluate` walks one tree directly, the oracle that program must
+match bit for bit.  Regex has no tensor form: its leaves are evaluated on
+the host with ``re`` into cached bitmaps.
 """
 from __future__ import annotations
 
@@ -236,6 +237,69 @@ class TruePredicate(Predicate):
 
 
 # ---------------------------------------------------------------------------
+# Evaluation
+# ---------------------------------------------------------------------------
+
+
+def evaluate(pred: Predicate, table: AttributeTable) -> Tensor:
+    """Evaluate ``pred`` into a (n,) bool pass-mask on the table's device.
+
+    A tree walk in tensor ops, except ``RegexMatch`` leaves: those run on
+    the host (``AttributeTable.regex_mask``) and their masks move to the
+    table's device before the combination."""
+    if isinstance(pred, TruePredicate):
+        return torch.ones((table.n,), dtype=torch.bool, device=table.device)
+    if isinstance(pred, Equals):
+        return table.int_cols[pred.column] == pred.value
+    if isinstance(pred, OneOf):
+        col = table.int_cols[pred.column]
+        vals = torch.as_tensor(pred.values, dtype=col.dtype,
+                               device=col.device).reshape(-1)
+        return (col[:, None] == vals[None, :]).any(dim=-1)
+    if isinstance(pred, Between):
+        col = table.int_cols[pred.column]
+        return (col >= pred.lo) & (col <= pred.hi)
+    if isinstance(pred, ContainsAny):
+        col = table.bitset_cols[pred.column]
+        q = keywords_to_bitset(pred.keywords, table.n_keywords[pred.column])
+        qt = torch.as_tensor(q.view(np.int32), device=col.device)
+        return ((col & qt[None, :]) != 0).any(dim=-1)
+    if isinstance(pred, RegexMatch):
+        return torch.as_tensor(table.regex_mask(pred.column, pred.pattern),
+                               device=table.device)
+    if isinstance(pred, And):
+        out = evaluate(pred.parts[0], table)
+        for p in pred.parts[1:]:
+            out = out & evaluate(p, table)
+        return out
+    if isinstance(pred, Or):
+        out = evaluate(pred.parts[0], table)
+        for p in pred.parts[1:]:
+            out = out | evaluate(p, table)
+        return out
+    if isinstance(pred, Not):
+        return ~evaluate(pred.part, table)
+    raise TypeError(f"unknown predicate {type(pred)}")
+
+
+def evaluate_batch(preds, table: AttributeTable) -> Tensor:
+    """Evaluate a list of predicates -> (B, n) bool."""
+    return torch.stack([evaluate(p, table) for p in preds], dim=0)
+
+
+def _float32_mean(mask: Tensor) -> np.ndarray:
+    """The float32 mean of each row of a bool mask, as count * (1 / n) in
+    float32: the form XLA compiles the reference's float32 mean into."""
+    count = mask.sum(dim=-1).cpu().numpy().astype(np.float32)
+    return count * (np.float32(1) / np.float32(mask.shape[-1]))
+
+
+def selectivity(pred: Predicate, table: AttributeTable) -> float:
+    """Share of the table's rows that pass ``pred``."""
+    return float(_float32_mean(evaluate(pred, table)))
+
+
+# ---------------------------------------------------------------------------
 # Selectivity estimation (cost-based routing, paper §5.2)
 # ---------------------------------------------------------------------------
 
@@ -274,7 +338,4 @@ class SelectivitySketch:
         from .plan import PredicateProgram, compile_predicates
         prog = (preds if isinstance(preds, PredicateProgram)
                 else compile_predicates(preds, self.sample))
-        mask = prog.evaluate(self.sample)
-        count = mask.sum(dim=1).cpu().numpy().astype(np.float32)
-        inv = np.float32(1) / np.float32(mask.shape[1])
-        return (count * inv).astype(np.float64)
+        return _float32_mean(prog.evaluate(self.sample)).astype(np.float64)

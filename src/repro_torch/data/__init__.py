@@ -1,3 +1,5 @@
-from .synthetic import Dataset, Workload, make_lcps_dataset, make_workload
+from .synthetic import (KEYWORD_NAMES, Dataset, Workload, make_hcps_dataset,
+                        make_lcps_dataset, make_workload)
 
-__all__ = ["Dataset", "Workload", "make_lcps_dataset", "make_workload"]
+__all__ = ["KEYWORD_NAMES", "Dataset", "Workload", "make_hcps_dataset",
+           "make_lcps_dataset", "make_workload"]

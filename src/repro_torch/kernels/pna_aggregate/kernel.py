@@ -31,7 +31,7 @@ def pna_aggregate_cuda(adj: torch.Tensor, feats: torch.Tensor
     if torch.is_grad_enabled() and (adj.requires_grad or feats.requires_grad):
         raise NotImplementedError(
             "pna_aggregate has no backward on the card (ROADMAP.md queue 1 "
-            "item 9: the PNA train steps)")
+            "item 5: the PNA train steps)")
     out = torch.empty((b, n, 4 * f), dtype=torch.float32, device=adj.device)
     if out.numel() == 0:
         return out

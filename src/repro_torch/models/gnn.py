@@ -7,7 +7,7 @@ reference (``repro/models/gnn.py``) keeps parameters as a pytree; here
 they are a :class:`PNA` module with the reference's names and layouts
 ((d_in, d_out) matrices, no biases), so ``h @ w`` reads the same.
 
-Still to port (ROADMAP.md queue 1 item 9): ``forward_sparse``,
+Still to port (ROADMAP.md queue 1 item 5): ``forward_sparse``,
 ``forward_minibatch``, ``build_csr``, ``sample_fanout`` and the losses.
 """
 from __future__ import annotations

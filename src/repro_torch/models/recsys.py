@@ -7,7 +7,7 @@ methods keep the reference's names (``user_embed``, ``item_embed``,
 transpose of the reference's (d_in, d_out); ``repro_torch.convert``
 carries a reference parameter tree across.
 
-Still to port (ROADMAP queue 1 item 9): ``two_tower_loss``, DIEN, SASRec
+Still to port (ROADMAP queue 1 item 5): ``two_tower_loss``, DIEN, SASRec
 and DCN-v2.
 """
 from __future__ import annotations

@@ -18,11 +18,13 @@ import torch
 import repro_torch
 from repro_torch.configs.pna import ARCH as PNA_ARCH
 from repro_torch.configs.two_tower_retrieval import REDUCED
-from repro_torch.convert import (graph_from_arrays, pna_params_from_arrays,
-                                 table_from_arrays,
+from repro_torch.convert import (engine_from_arrays, graph_from_arrays,
+                                 pna_params_from_arrays, table_from_arrays,
                                  two_tower_params_from_arrays)
 from repro_torch.core import (AcornConfig, HybridIndex, sentinel_result)
-from repro_torch.data import make_lcps_dataset
+from repro_torch.data import make_hcps_dataset, make_lcps_dataset
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.serve import EngineConfig, ServingEngine
 from repro_torch.kernels import loader
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.filtered_topk import filtered_topk_cuda
@@ -70,6 +72,19 @@ def _no_cuda():
 ENTRY_POINTS = {
     "resolve_device": lambda: repro_torch.resolve_device(),
     "make_lcps_dataset": lambda: make_lcps_dataset(n=64, d=4),
+    "make_hcps_dataset": lambda: make_hcps_dataset(n=64, d=4),
+    "ServingEngine": lambda: ServingEngine(
+        torch.zeros((8, 4)), table_from_arrays({"label": np.zeros(8)},
+                                               device="cpu"),
+        AcornConfig(M=4, gamma=2), EngineConfig(n_shards=2)),
+    "engine_from_arrays": lambda: engine_from_arrays(
+        [dict(graph=dict(neighbors=[np.full((2, 2), -1)], pos=[np.arange(2)],
+                         node_ids=[np.arange(2)], entry_point=0,
+                         levels=np.zeros(2)),
+              x=np.zeros((2, 4)), table=dict(int_cols={"label": np.zeros(2)}))],
+        AcornConfig(M=4, gamma=2), EngineConfig()),
+    "launch.serve": lambda: serve_main(["--n", "64", "--d", "4",
+                                        "--shards", "1"]),
     "graph_from_arrays": lambda: graph_from_arrays(
         [np.full((2, 2), -1)], [np.arange(2)], [np.arange(2)], 0,
         np.zeros(2)),

@@ -15,10 +15,9 @@ import torch
 import repro.core as J
 import repro_torch.core as T
 from repro.data import make_hcps_dataset
-from torch_parity import port_table
+from torch_parity import build, port_table, random_tree
 
 N = 700
-KW_WORDS = ["animal", "green", "blue", "city", "ocean"]
 
 
 @pytest.fixture(scope="module")
@@ -26,40 +25,6 @@ def tables():
     ds = make_hcps_dataset(n=N, d=8, seed=3)
     jt = ds.table
     return jt, port_table(jt)
-
-
-def random_tree(rng, depth=0):
-    """A random predicate tree as a neutral description (kind, args)."""
-    leaves = [
-        lambda: ("Equals", "date", int(rng.integers(0, 120))),
-        lambda: ("OneOf", "date", tuple(int(v) for v in rng.choice(
-            120, size=rng.integers(0, 6), replace=False))),
-        lambda: ("Between", "date", int(rng.integers(0, 60)),
-                 int(rng.integers(40, 120))),
-        lambda: ("ContainsAny", "keywords", tuple(int(v) for v in rng.choice(
-            30, size=rng.integers(0, 4), replace=False))),
-        lambda: ("RegexMatch", "caption",
-                 rf"\b{rng.choice(KW_WORDS)}\b"),
-        lambda: ("TruePredicate",),
-    ]
-    if depth >= 3 or rng.random() < 0.4:
-        return leaves[int(rng.integers(0, len(leaves)))]()
-    kind = int(rng.integers(0, 3))
-    if kind == 2:
-        return ("Not", random_tree(rng, depth + 1))
-    parts = tuple(random_tree(rng, depth + 1)
-                  for _ in range(int(rng.integers(1, 4))))
-    return ("And" if kind == 0 else "Or", parts)
-
-
-def build(mod, desc):
-    """Instantiate a tree description with one package's classes."""
-    kind = desc[0]
-    if kind in ("And", "Or"):
-        return getattr(mod, kind)(tuple(build(mod, p) for p in desc[1]))
-    if kind == "Not":
-        return mod.Not(build(mod, desc[1]))
-    return getattr(mod, kind)(*desc[1:])
 
 
 @pytest.mark.parametrize("seed", range(6))

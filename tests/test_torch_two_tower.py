@@ -153,11 +153,11 @@ def test_cells_match_reference():
 
 def test_unported_kinds_and_arches_raise():
     cfg = ARCH.config(reduced=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         ARCH.step_fn(cfg, "train_batch")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         ARCH.abstract_inputs(cfg, "train_batch", reduced=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         ARCH.step_fn(cfg, "retrieval_cand", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         get_arch("dien")

@@ -12,6 +12,9 @@ import torch
 from repro_torch.convert import (graph_from_arrays, pna_params_from_arrays,
                                  table_from_arrays)
 
+# caption words of the random trees' regex leaves
+KW_WORDS = ["animal", "green", "blue", "city", "ocean"]
+
 # relative width of a near tie in distance: two ids whose distances to the
 # query agree this closely may swap places between the packages (their
 # fp32 sums run in different orders)
@@ -23,6 +26,18 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op torch thread for a module of many small CPU ops: they
+    run no faster on more, and the test workers share the machine."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 def port_graph(g, device="cpu"):
@@ -111,3 +126,62 @@ def assert_ids_match(ids_port, ids_ref, d_port, d_ref, x, xq, metric="l2",
                                  (atol + 1e-5 * np.abs(d_ref))[same] + 1e-30)
     assert np.array_equal(np.isfinite(d_port), np.isfinite(d_ref))
     return ties
+
+
+def port_engine(engine, torch_acorn, torch_cfg, seed=0, device="cpu"):
+    """The port's ``ServingEngine`` over a reference engine's shards (its
+    graphs, vectors and tables, as numpy)."""
+    from repro_torch.convert import engine_from_arrays
+
+    def graph(g):
+        return dict(neighbors=[np.asarray(a) for a in g.neighbors],
+                    pos=[np.asarray(a) for a in g.pos],
+                    node_ids=[np.asarray(a) for a in g.node_ids],
+                    entry_point=np.asarray(g.entry_point),
+                    levels=np.asarray(g.levels))
+
+    def table(t):
+        return dict(int_cols={k: np.asarray(v) for k, v in t.int_cols.items()},
+                    bitset_cols={k: np.asarray(v)
+                                 for k, v in t.bitset_cols.items()},
+                    str_cols=dict(t.str_cols), n_keywords=dict(t.n_keywords))
+
+    return engine_from_arrays(
+        [dict(graph=graph(s.index.graph), x=np.asarray(s.index.x),
+              table=table(s.index.table))
+         for s in engine.shards], torch_acorn, torch_cfg, seed=seed,
+        device=device)
+
+
+def random_tree(rng, depth=0):
+    """A random predicate tree as a neutral description (kind, args)."""
+    leaves = [
+        lambda: ("Equals", "date", int(rng.integers(0, 120))),
+        lambda: ("OneOf", "date", tuple(int(v) for v in rng.choice(
+            120, size=rng.integers(0, 6), replace=False))),
+        lambda: ("Between", "date", int(rng.integers(0, 60)),
+                 int(rng.integers(40, 120))),
+        lambda: ("ContainsAny", "keywords", tuple(int(v) for v in rng.choice(
+            30, size=rng.integers(0, 4), replace=False))),
+        lambda: ("RegexMatch", "caption",
+                 rf"\b{rng.choice(KW_WORDS)}\b"),
+        lambda: ("TruePredicate",),
+    ]
+    if depth >= 3 or rng.random() < 0.4:
+        return leaves[int(rng.integers(0, len(leaves)))]()
+    kind = int(rng.integers(0, 3))
+    if kind == 2:
+        return ("Not", random_tree(rng, depth + 1))
+    parts = tuple(random_tree(rng, depth + 1)
+                  for _ in range(int(rng.integers(1, 4))))
+    return ("And" if kind == 0 else "Or", parts)
+
+
+def build(mod, desc):
+    """Instantiate a tree description with one package's classes."""
+    kind = desc[0]
+    if kind in ("And", "Or"):
+        return getattr(mod, kind)(tuple(build(mod, p) for p in desc[1]))
+    if kind == "Not":
+        return mod.Not(build(mod, desc[1]))
+    return getattr(mod, kind)(*desc[1:])
