@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py   # SIFT1M-shaped LCPS index (n = 1,000,000),
+    python3 chip_smoke.py   # SIFT1M-shaped LCPS index (n = 1,000,000)
+                            # with Figure 7's baselines and Table 4's
+                            # incremental builds beside it,
                             # two-tower retrieval_cand (n = 1,048,576),
                             # embedding_bag, PNA molecule inference and
                             # the sharded HCPS serving engine (n = 2^20)
@@ -49,6 +51,35 @@ Phases, each printed on its own line:
            gather_distance (removed after it): both kernels checked and
            timed again on the arguments of level-0 hops ``HOPS``
            (``other_shapes`` of their records).
+  baselines  Figure 7 (§7.2) on the build phase's data and the serve
+           phase's first 256 queries with their exact top-10: ACORN-1
+           (M = 32), HNSW (M = 32, efc 64) and the oracle partition index
+           (12 HNSW graphs, one per label, ~83k rows each) built on the
+           card (seconds, peak memory, index bytes); ACORN-γ and ACORN-1
+           through ``hybrid_search`` (max_expansions 4·ef), HNSW
+           post-filtering at the workload's mean selectivity and the
+           oracle (one batch per label) at each ef of ``BASE_EF_SWEEP``,
+           pre-filtering once: recall@10, QPS and mean dist_comps, launch
+           counters zeroed just before each call and read just after
+           (gather_distance for every graph method, neighbor_expand for
+           ACORN-γ and ACORN-1 only); every id passes its predicate,
+           pre-filter recall >= 0.999; a method below
+           ``BASE_RECALL_FLOOR`` at the last ef returns a CPU copy's ids on
+           every query there (its recall is then the plain versions'
+           own); QPS at recall 0.9 per method (not gated); 16 queries of each method at ef 64 against a CPU copy
+           (near ties only); ``build_hnsw`` over the first 2^14 rows on
+           the card and on the CPU (differences only at explained near
+           ties: exact-KNN ties, float64 prune margins, identical
+           reverse slack).
+  incremental  Table 4: ``build_incremental`` for hnsw (efc 40), acorn-1
+           and acorn-gamma (M = 32, γ = 12, ef_build 480) over the first
+           ``N_INC`` rows (a cut: sequential inserts are host-driven):
+           time to index, index bytes, recall@10 of 64 unfiltered queries
+           against their exact top-10 over those rows, whether TTI(ACORN-1)
+           < TTI(HNSW) < TTI(ACORN-γ) (not gated); then each variant over
+           256 rows on the card and on a CPU copy: neighbour lists,
+           counts and entry point identical (a diverging insert must be
+           explained by a near tie).
   retrieve the two-tower arch's ``retrieval_cand`` step at its FULL width
            (4,194,304 users, 2,097,152 items, E = 256, towers
            1024-512-256): item embeddings of 1,048,576 candidates, a
@@ -243,6 +274,27 @@ ENGINE_PARITY = 16                  # graph-route queries on a CPU copy
 # the first queries of the closed loop and of each kind, forced onto the
 # graph route at each ef: does graph recall rise with the search's budget?
 ENGINE_SWEEP_QUERIES, ENGINE_EF_SWEEP = 64, (64, 256)
+
+# Figure 7 (§7.2) on the build phase's data and queries: ACORN-1, HNSW
+# post-filtering and the oracle partition index (one HNSW per label) beside
+# ACORN-γ and pre-filtering, the reference's fig7_recall_qps methods
+BASE_M = 32                        # ACORN-1 (m = m_β = 32), HNSW, oracle
+BASE_EFC = max(2 * BASE_M, 40)     # HNSW's efc: the reference's default
+BASE_EF_SWEEP = (32, 64, 128, 256)
+BASE_PARITY = 16                   # queries per method on a CPU copy, ef 64
+BASE_HNSW_ROWS = 1 << 14           # build_hnsw on the card and on the CPU
+RECALL_TARGET = 0.9
+# the serve phase's floor against a broken kernel; a method below it at the
+# last ef must match a CPU copy on every query (the reference's bulk
+# ACORN-1 stays near 0.2-0.3 here in both packages)
+BASE_RECALL_FLOOR = 0.5
+# Table 4: time to index of the incremental builder (sequential inserts,
+# host-driven); N_INC is cut to fit the run's time
+N_INC = 2048
+INC_VARIANTS = ("hnsw", "acorn-1", "acorn-gamma")
+INC_EFC = 40                       # ef_build: 40; ACORN-γ 40·γ = 480
+INC_QUERIES = 64
+INC_PREFIX = 256                   # rows built on the card and on the CPU
 
 # neighbor_expand's edge cases, the same as CARD_CASES in
 # tests/test_torch_neighbor_expand.py (case i is drawn with seed i by
@@ -1945,6 +1997,460 @@ def engine_serving(dev, ds, engine, closed, kinds, profile: bool) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# baselines and incremental phases: Figure 7 and Table 4 (§7.2)
+# ---------------------------------------------------------------------------
+
+
+def assert_ids_pass(ids, masks, what: str) -> None:
+    """Every returned id (>= 0) passes its query's predicate."""
+    import torch
+    passes = torch.gather(masks, 1, ids.clamp(min=0).long())
+    if not bool((passes | (ids < 0)).all()):
+        raise AssertionError(f"{what}: a returned id fails its predicate")
+
+
+def sq_dists64(x, rows, ids):
+    """float64 squared L2 from x[rows[i]] to x[ids[i, j]] (numpy, ids
+    >= 0), computed on the host."""
+    xr = x[np.asarray(rows)].astype(np.float64)
+    xi = x[np.asarray(ids)].astype(np.float64)
+    return ((xi - xr[:, None, :]) ** 2).sum(-1)
+
+
+def assert_knn_near_ties(knn_a, knn_b, xm, what: str) -> int:
+    """Exact-KNN lists (local ids, numpy) may differ only where the two
+    ids' float64 distances to the row are a near tie; returns the count
+    of differing rows."""
+    rows = np.nonzero((knn_a != knn_b).any(axis=1))[0]
+    for r in rows:
+        sel = np.nonzero(knn_a[r] != knn_b[r])[0]
+        a, b = knn_a[r, sel], knn_b[r, sel]
+        if (a < 0).any() or (b < 0).any():
+            raise AssertionError(f"{what}: row {r} pads differently")
+        da = sq_dists64(xm, [r], [a])[0]
+        db = sq_dists64(xm, [r], [b])[0]
+        if (np.abs(da - db) > NEAR_TIE_REL * np.maximum(da, db)).any():
+            raise AssertionError(f"{what}: row {r} differs off a near tie")
+    return len(rows)
+
+
+def rng_prune_margin(xm, cand, rows, m_out: int) -> np.ndarray:
+    """Per row of ``rows``, the smallest relative gap between the two sides of any
+    comparison ``rng_prune`` makes (dist(v, c_j) against dist(c_j, c_k)
+    for the kept c_k), replayed in float64 on the host; a row whose
+    pruned list differs between two arithmetics must have a gap within
+    NEAR_TIE_REL."""
+    out = np.full(len(rows), np.inf)
+    for i, r in enumerate(rows):
+        c = cand[r][cand[r] >= 0]
+        d_vc = sq_dists64(xm, [r], [c])[0]
+        xc = xm[c].astype(np.float64)
+        d_cc = ((xc[:, None, :] - xc[None, :, :]) ** 2).sum(-1)
+        kept = []
+        for j in range(len(c)):
+            if len(kept) >= m_out:
+                break
+            dk = d_cc[j, kept].min() if kept else np.inf
+            if np.isfinite(dk):
+                out[i] = min(out[i], abs(d_vc[j] - dk) / max(d_vc[j], dk))
+            if d_vc[j] < dk:
+                kept.append(j)
+    return out
+
+
+def hnsw_build_parity(x_card, m: int, efc: int, seed: int = 0) -> dict:
+    """``build_hnsw`` over ``x_card``'s rows on its device and on a CPU
+    copy, with one level draw: neighbour lists, ``pos``, ``node_ids`` and
+    entry point identical except where a near tie explains a row: each
+    level's exact-KNN lists may differ only at near ties, ``rng_prune`` on
+    the CPU's KNN lists may differ only in rows whose float64 prune has a
+    near tie, and the reverse-slack pass on the CPU's pruned lists must be
+    identical.  Returns the counts of differing rows."""
+    import torch
+    from repro_torch.core import (assign_levels, build_hnsw, knn_among,
+                                  rng_prune, with_reverse_slack)
+    n = x_card.shape[0]
+    lv = assign_levels(torch.Generator().manual_seed(seed), n, m).numpy()
+    x_cpu = x_card.cpu()
+    ga = build_hnsw(x_card, None, m, efc=efc, levels=lv)
+    gb = build_hnsw(x_cpu, None, m, efc=efc, levels=lv)
+    if int(ga.entry_point) != int(gb.entry_point):
+        raise AssertionError("build_hnsw card vs CPU: entry points differ")
+    out = dict(differing_rows=0, knn_rows=0, prune_rows=0)
+    xn = x_cpu.numpy()
+    r_slack = max(2, m // 2)
+    for lvl in range(gb.num_levels):
+        for f in ("pos", "node_ids"):
+            if not torch.equal(getattr(ga, f)[lvl].cpu(),
+                               getattr(gb, f)[lvl]):
+                raise AssertionError(f"build_hnsw card vs CPU: {f} differ")
+        a, b = ga.neighbors[lvl].cpu().numpy(), gb.neighbors[lvl].numpy()
+        if np.array_equal(a, b):
+            continue
+        out["differing_rows"] += int((a != b).any(axis=1).sum())
+        members = gb.node_ids[lvl].long()
+        xm = xn[members.numpy()]
+        k_cand = min(efc, max(len(members) - 1, 1))
+        m_out = max((2 * m if lvl == 0 else m) - r_slack, 1)
+        knn_b = knn_among(x_cpu[members], k_cand)
+        knn_a = knn_among(x_card[members.to(x_card.device)], k_cand).cpu()
+        what = f"build_hnsw card vs CPU, level {lvl}"
+        out["knn_rows"] += assert_knn_near_ties(knn_a.numpy(), knn_b.numpy(),
+                                                xm, what + " KNN")
+        pb = rng_prune(x_cpu[members], knn_b, m_out)
+        pa = rng_prune(x_card[members.to(x_card.device)],
+                       knn_b.to(x_card.device), m_out).cpu()
+        rows = np.nonzero((pa != pb).any(dim=1).numpy())[0]
+        if len(rows):
+            gap = rng_prune_margin(xm, knn_b.numpy(), rows, m_out)
+            if (gap > NEAR_TIE_REL).any():
+                raise AssertionError(f"{what}: rng_prune differs off a "
+                                     "near tie")
+        out["prune_rows"] += len(rows)
+        if not torch.equal(with_reverse_slack(pb.to(x_card.device), r_slack)
+                           .cpu(), with_reverse_slack(pb, r_slack)):
+            raise AssertionError(f"{what}: reverse slack differs")
+    return out
+
+
+def oracle_to(oracle, device):
+    """A copy of an ``OraclePartitionIndex`` on ``device``."""
+    from repro_torch.core import OraclePartitionIndex
+    return OraclePartitionIndex(
+        partitions={pid: (g.to(device), xp.to(device), gids.to(device))
+                    for pid, (g, xp, gids) in oracle.partitions.items()},
+        m=oracle.m)
+
+
+def baselines_build(dev, x, labels, card: int = CARD, m: int = BASE_M,
+                    efc: int = BASE_EFC) -> dict:
+    """ACORN-1, HNSW (the post-filter's graph) and the oracle partition
+    index (one HNSW per label) over ``x`` on ``dev``, each with M = ``m``
+    and a generator seeded 0; logs seconds, peak device memory over the
+    build's start and index bytes (edges; the oracle's copies of its
+    partitions' vectors apart)."""
+    import torch
+    from repro_torch.core import (OraclePartitionIndex, build_acorn_1,
+                                  build_hnsw, memory_bytes)
+    cuda = dev.type == "cuda"
+    built = {}
+
+    def timed(name, fn):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+        sync(dev)
+        t0 = time.perf_counter()
+        obj = fn(torch.Generator().manual_seed(0))
+        sync(dev)
+        secs = time.perf_counter() - t0
+        if name == "oracle":
+            nbytes = sum(memory_bytes(g) for g, _, _ in
+                         obj.partitions.values())
+            extra = dict(partitions=len(obj.partitions),
+                         rows=[int(xp.shape[0]) for _, xp, _ in
+                               obj.partitions.values()],
+                         vector_copy_bytes=sum(
+                             xp.numel() * xp.element_size()
+                             for _, xp, _ in obj.partitions.values()))
+        else:
+            nbytes = memory_bytes(obj)
+            extra = dict(levels=[tuple(t.shape) for t in obj.neighbors])
+        log("baselines", build=name, M=m, seconds=f"{secs:.3f}",
+            max_memory_allocated=(torch.cuda.max_memory_allocated() - mem0
+                                  if cuda else "not_measured"),
+            index_bytes=nbytes, **extra)
+        built[name] = obj
+
+    timed("acorn-1", lambda gen: build_acorn_1(x, gen, M=m))
+    timed("hnsw", lambda gen: build_hnsw(x, gen, M=m, efc=efc))
+    timed("oracle", lambda gen: OraclePartitionIndex.build(
+        x, {v: labels == v for v in range(card)}, gen, M=m, efc=efc))
+    return built
+
+
+def fig7_methods(x, g_gamma, built, selectivity: float) -> dict:
+    """The four graph methods of Figure 7 over ``x``: {name: (run,
+    comps)}, ``run(xq, masks, labels, ef) -> (ids, dists, dist_comps (B,)
+    or None)`` and ``comps(xq, ef)`` the dist_comps where ``run`` gives
+    None.  ACORN-γ (M,
+    M_β of the build phase) and ACORN-1 (m = m_β = BASE_M) through
+    ``hybrid_search`` with max_expansions 4·ef, as the reference's
+    benchmark runs them; post-filter through ``postfilter_search`` at
+    ``selectivity`` (its dist_comps from the same pool's ``ann_search``,
+    run after it); the oracle one batch per label (``labels``, numpy)."""
+    import torch
+    from repro_torch.core import ann_search, hybrid_search, postfilter_search
+    from repro_torch.core.baselines import postfilter_pool
+
+    def acorn(g, variant, m, m_beta):
+        def run(q, pm, lab, ef):
+            ids, d, st = hybrid_search(
+                g, x, q, pm, k=K, ef=ef, variant=variant, m=m, m_beta=m_beta,
+                compressed_level0=variant == "acorn-gamma",
+                max_expansions=4 * ef)
+            return ids, d, st.dist_comps
+        return run
+
+    def post(q, pm, lab, ef):
+        return postfilter_search(built["hnsw"], x, q, pm, K,
+                                 selectivity=selectivity, ef=ef,
+                                 m=BASE_M) + (None,)
+
+    def post_comps(q, ef):
+        kk, ef_eff = postfilter_pool(K, selectivity, ef)
+        return ann_search(built["hnsw"], x, q, k=kk, ef=ef_eff,
+                          m=BASE_M)[2].dist_comps
+
+    def oracle(q, pm, lab, ef):
+        ids = torch.full((q.shape[0], K), -1, dtype=torch.int32,
+                         device=q.device)
+        d = torch.full((q.shape[0], K), float("inf"), device=q.device)
+        dc = torch.zeros((q.shape[0],), dtype=torch.int32, device=q.device)
+        for pid in np.unique(lab):
+            sel = torch.as_tensor(np.nonzero(lab == pid)[0], device=q.device)
+            i, dd, st = built["oracle"].search(int(pid), q[sel], K, ef=ef)
+            ids[sel], d[sel], dc[sel] = i, dd, st.dist_comps
+        return ids, d, dc
+
+    return {"acorn-gamma": (acorn(g_gamma, "acorn-gamma", M, M_BETA), None),
+            "acorn-1": (acorn(built["acorn-1"], "acorn-1", BASE_M, BASE_M),
+                        None),
+            "postfilter": (post, post_comps), "oracle": (oracle, None)}
+
+
+def baselines_search(dev, x, g_gamma, built, xq, masks, labels, gt,
+                     ef_sweep=BASE_EF_SWEEP, n_parity: int = BASE_PARITY
+                     ) -> dict:
+    """Figure 7 on ``dev``: each graph method at every ef of ``ef_sweep``
+    and pre-filter once, over the queries ``xq`` (masks (B, n), labels
+    (B,) numpy, exact top-K ``gt``): recall@K, QPS (one timed call of
+    the batch) and mean dist_comps, with the launch counters zeroed just
+    before each call and read just after.  Checks: every id passes its
+    predicate; pre-filter recall >= 0.999; on the card gather_distance
+    launches for every graph method and neighbor_expand for ACORN-γ and
+    ACORN-1 only; ``n_parity`` queries of each method at ef 64 equal a CPU
+    copy's (plain versions) except at near ties; a method whose recall at
+    the sweep's last ef is below BASE_RECALL_FLOOR returns, on every
+    query at that ef, the CPU copy's ids except at near ties (the floor
+    guards against a broken kernel; below it, the recall must be the
+    plain versions' own).  Returns {method: launches}."""
+    import torch
+    from repro_torch.core import prefilter_search, recall_at_k
+    from repro_torch.kernels.gather_distance import gather_distance_cuda
+    from repro_torch.kernels.neighbor_expand import neighbor_expand_cuda
+    sel = float(masks.float().mean())
+    methods = fig7_methods(x, g_gamma, built, sel)
+    nq = xq.shape[0]
+    launches, curves, last = {}, {}, {}
+
+    def counted(fn):
+        sync(dev)
+        gather_distance_cuda.launches = 0
+        neighbor_expand_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        secs = time.perf_counter() - t0
+        return out, secs, {"gather_distance": gather_distance_cuda.launches,
+                           "neighbor_expand": neighbor_expand_cuda.launches}
+
+    for name, (run, comps) in methods.items():
+        run(xq[:16], masks[:16], labels[:16], ef_sweep[0])   # warm-up
+        pts = []
+        for ef in ef_sweep:
+            out, secs, cnt = counted(lambda: run(xq, masks, labels, ef))
+            ids, dc = out[0], (out[2] if comps is None else comps(xq, ef))
+            assert_ids_pass(ids, masks, f"{name} ef={ef}")
+            pts.append(dict(ef=ef, recall=round(recall_at_k(ids, gt), 4),
+                            qps=round(nq / secs, 1),
+                            dist_comps=round(float(dc.float().mean()), 1)))
+            log("baselines", method=name, **pts[-1], launches=cnt)
+            for k, v in cnt.items():
+                launches.setdefault(name, {}).setdefault(k, 0)
+                launches[name][k] += v
+        curves[name] = pts
+        last[name] = out[:2]
+    (ids, _), secs, cnt = counted(lambda: prefilter_search(xq, x, masks, K))
+    assert_ids_pass(ids, masks, "prefilter")
+    pre = dict(recall=round(recall_at_k(ids, gt), 4), qps=round(nq / secs, 1),
+               dist_comps=round(float(masks.sum(dim=1).float().mean()), 1))
+    log("baselines", method="prefilter", **pre, launches=cnt)
+    if pre["recall"] < 0.999:
+        raise AssertionError(f"prefilter recall {pre['recall']} < 0.999")
+    if dev.type == "cuda":
+        for name, cnt in launches.items():
+            if cnt["gather_distance"] <= 0:
+                raise AssertionError(f"{name}: gather_distance not launched")
+            if (cnt["neighbor_expand"] > 0) != name.startswith("acorn"):
+                raise AssertionError(f"{name}: neighbor_expand launched "
+                                     f"{cnt['neighbor_expand']} times")
+    at = {name: max([p["qps"] for p in pts
+                     if p["recall"] >= RECALL_TARGET], default=None)
+          for name, pts in curves.items()}
+    at["prefilter"] = pre["qps"] if pre["recall"] >= RECALL_TARGET else None
+    log("baselines", qps_at_recall=RECALL_TARGET, **at,
+        order=sorted(at, key=lambda k: -(at[k] or 0.0)), selectivity=sel)
+
+    # card (kernels) vs a CPU copy (plain versions), ef 64
+    cpu = torch.device("cpu")
+    cpu_built = {"acorn-1": built["acorn-1"].to(cpu),
+                 "hnsw": built["hnsw"].to(cpu),
+                 "oracle": oracle_to(built["oracle"], cpu)}
+    x_cpu = x.cpu()
+    cpu_methods = fig7_methods(x_cpu, g_gamma.to(cpu), cpu_built, sel)
+    q, pm, lab = xq[:n_parity], masks[:n_parity], labels[:n_parity]
+    for name, (run, _) in methods.items():
+        run_cpu = cpu_methods[name][0]
+        ids_c, d_c = run(q, pm, lab, 64)[:2]
+        ids_h, d_h = run_cpu(q.cpu(), pm.cpu(), lab, 64)[:2]
+        err, ties = assert_topk_match(ids_c, d_c, ids_h, d_h, q.cpu(), x_cpu,
+                                      "l2", f"{name} card vs CPU")
+        log("parity", path="baselines", method=name, queries=n_parity,
+            near_ties=ties, max_abs_err=err)
+    # below the floor at the last ef, the CPU copy must give the same ids
+    # on every query: the recall is then the plain versions' own
+    for name, pts in curves.items():
+        if pts[-1]["recall"] >= BASE_RECALL_FLOOR:
+            continue
+        ef = ef_sweep[-1]
+        ids_h, d_h = cpu_methods[name][0](xq.cpu(), masks.cpu(), labels,
+                                          ef)[:2]
+        err, ties = assert_topk_match(*last[name], ids_h, d_h, xq.cpu(),
+                                      x_cpu, "l2", f"{name} ef={ef} below "
+                                      f"the floor, card vs CPU")
+        log("parity", path="baselines", method=name, ef=ef, queries=nq,
+            recall=pts[-1]["recall"], floor=BASE_RECALL_FLOOR,
+            cpu_recall=round(recall_at_k(ids_h, gt.cpu()), 4),
+            near_ties=ties, max_abs_err=err)
+    return launches
+
+
+def incremental_states(x, lv, variant: str, m: int, gamma: int, efc: int):
+    """The incremental builder's state after inserting every row of ``x``
+    in order, with levels ``lv`` (numpy)."""
+    from repro_torch.core.build_incremental import (insert, new_state,
+                                                    variant_params)
+    caps, ef_b = variant_params(variant, m, gamma, efc, int(lv.max()) + 1)
+    st = new_state(x.shape[0], caps, int(lv[0]), x.device)
+    beams = {}
+    for v in range(x.shape[0]):
+        st = insert(st, x, v, int(lv[v]), caps, m, ef_b, beams)
+    return st, caps, ef_b
+
+
+def insert_near_tie(x, v: int, pre, a, b) -> bool:
+    """Does a near tie explain why inserting ``v`` gave the tables ``a``
+    and ``b`` (numpy, per level) from the same tables ``pre``?  Where v's
+    own list differs at some level, its float64 distances to the ids of
+    both lists must hold a near tie; a reverse list that differs while
+    v's lists agree must hold one among its owner's distances to its
+    earlier entries and v."""
+    def tie(d):
+        d = np.sort(d)
+        return bool((np.diff(d) <= NEAR_TIE_REL * d[1:]).any())
+
+    for lvl in range(len(pre)):
+        if not np.array_equal(a[lvl][v], b[lvl][v]):
+            ids = np.union1d(a[lvl][v], b[lvl][v])
+            return tie(sq_dists64(x, [v], [ids[ids >= 0]])[0])
+    for lvl in range(len(pre)):
+        for u in np.nonzero((a[lvl] != b[lvl]).any(axis=1))[0]:
+            ids = np.append(pre[lvl][u][pre[lvl][u] >= 0], v)
+            if not tie(sq_dists64(x, [u], [ids])[0]):
+                return False
+    return True
+
+
+def incremental_parity(x_card, lv, variant: str, m: int, gamma: int,
+                       efc: int) -> int:
+    """The incremental builder on ``x_card``'s device and on a CPU copy,
+    with levels ``lv``: neighbour lists, counts and entry point identical.
+    Where they differ, every insert is replayed from the CPU's state on
+    both devices and each insert that diverges must be explained by a
+    near tie (:func:`insert_near_tie`).  Returns the diverging inserts."""
+    import torch
+    from repro_torch.core.build_incremental import (IncrementalState, insert,
+                                                    new_state)
+    x_cpu = x_card.cpu()
+    sa, caps, ef_b = incremental_states(x_card, lv, variant, m, gamma, efc)
+    sb, _, _ = incremental_states(x_cpu, lv, variant, m, gamma, efc)
+
+    def same(s, t):
+        return s.entry == t.entry and all(
+            torch.equal(p.cpu(), q.cpu()) for p, q in
+            zip(s.neighbors + s.counts, t.neighbors + t.counts))
+
+    if same(sa, sb):
+        return 0
+    xn, n = x_cpu.numpy(), x_cpu.shape[0]
+    sb = new_state(n, caps, int(lv[0]), "cpu")
+    diverged = 0
+    for v in range(n):
+        pre = [t[:n].numpy().copy() for t in sb.neighbors]
+        sa = IncrementalState(
+            tuple(t.to(x_card.device, copy=True) for t in sb.neighbors),
+            tuple(t.to(x_card.device, copy=True) for t in sb.counts),
+            sb.entry, sb.entry_level)
+        sa = insert(sa, x_card, v, int(lv[v]), caps, m, ef_b)
+        sb = insert(sb, x_cpu, v, int(lv[v]), caps, m, ef_b)
+        if same(sa, sb):
+            continue
+        diverged += 1
+        if not insert_near_tie(xn, v, pre,
+                               [t[:n].cpu().numpy() for t in sa.neighbors],
+                               [t[:n].numpy() for t in sb.neighbors]):
+            raise AssertionError(f"incremental {variant} card vs CPU: "
+                                 f"insert {v} differs off a near tie")
+    return diverged
+
+
+def incremental_phase(dev, x, xq, n_inc: int = N_INC,
+                      prefix: int = INC_PREFIX, m: int = BASE_M,
+                      gamma: int = GAMMA, efc: int = INC_EFC) -> dict:
+    """Table 4 on ``dev``: ``build_incremental`` for hnsw, acorn-1 and
+    acorn-gamma over the first ``n_inc`` rows of ``x`` (one generator
+    seed for all three): TTI seconds, index bytes and recall@K of the
+    queries ``xq``, unfiltered, through ``ann_search`` / ``hybrid_search``
+    against their exact top-K over those rows; then each variant over the
+    first ``prefix`` rows on ``dev`` and on a CPU copy, identical except
+    at near ties.  Returns {variant: TTI seconds}."""
+    import torch
+    from repro_torch.core import (ann_search, assign_levels, hybrid_search,
+                                  masked_topk, memory_bytes, recall_at_k)
+    from repro_torch.core.build_incremental import build_incremental
+    xs = x[:n_inc].contiguous()
+    gt, _ = masked_topk(xq, xs, None, K)
+    tti = {}
+    for variant in INC_VARIANTS:
+        g, secs = build_incremental(xs, torch.Generator().manual_seed(0), m,
+                                    variant=variant, gamma=gamma, efc=efc)
+        if variant == "hnsw":
+            ids = ann_search(g, xs, xq, k=K, ef=EF, m=m)[0]
+        else:
+            ids = hybrid_search(g, xs, xq, None, k=K, ef=EF, variant=variant,
+                                m=m, m_beta=2 * m,
+                                compressed_level0=False)[0]
+        tti[variant] = secs
+        log("incremental", variant=variant, n=n_inc, M=m,
+            gamma=gamma if variant == "acorn-gamma" else 1, efc=efc,
+            tti_s=f"{secs:.3f}", index_bytes=memory_bytes(g),
+            levels=[tuple(t.shape) for t in g.neighbors],
+            recall=round(recall_at_k(ids, gt), 4), queries=xq.shape[0])
+    log("incremental", tti_order_as_paper=bool(
+        tti["acorn-1"] < tti["hnsw"] < tti["acorn-gamma"]),
+        tti_s={k: round(v, 3) for k, v in tti.items()})
+    lv = assign_levels(torch.Generator().manual_seed(0), prefix, m).numpy()
+    for variant in INC_VARIANTS:
+        t0 = time.perf_counter()
+        div = incremental_parity(x[:prefix].contiguous(), lv, variant, m,
+                                 gamma, efc)
+        log("parity", path="incremental", variant=variant, rows=prefix,
+            diverging_inserts=div, seconds=f"{time.perf_counter() - t0:.1f}")
+    return tti
+
+
 def all_launchers() -> list:
     """The launch-counted wrapper of every kernel of the port."""
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda
@@ -2189,11 +2695,36 @@ def main(argv=None) -> int:
             dict(hop=hop, **measure_gather(*gd_args, flush, base, what)))
     del hops
 
+    # ---- baselines: Figure 7 beside ACORN-γ on the build phase's data ----
+    t0 = time.perf_counter()
+    built = baselines_build(dev, index.x, index.table.int_cols["label"])
+    base_launches = baselines_search(
+        dev, index.x, g, built, wl.xq[:B], masks_all[:B],
+        np.array([p.value for p in wl.predicates[:B]]), gt[:B])
+    for name in ("gather_distance", "neighbor_expand"):
+        by_name[name]["baselines_launches"] = {
+            method: cnt[name] for method, cnt in base_launches.items()}
+    del built
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    log("parity", path="build_hnsw", rows=BASE_HNSW_ROWS, M=BASE_M,
+        efc=BASE_EFC, **hnsw_build_parity(index.x[:BASE_HNSW_ROWS], BASE_M,
+                                          BASE_EFC),
+        seconds=f"{time.perf_counter() - t1:.1f}")
+    log("baselines", seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # ---- incremental: Table 4's time to index ----
+    t0 = time.perf_counter()
+    incremental_phase(dev, index.x, wl.xq[:INC_QUERIES])
+    log("incremental", seconds=f"{time.perf_counter() - t0:.1f}")
+
     rec, model = retrieve_phases(dev, flush, args.profile, base)
     rec["kernel_ms"] = rec["ms"]
     rec["other_shapes"] = [topk_lcps]
     records.append(rec)
-    records.append(bag_phases(dev, flush, model.user_emb))
+    # at (512, 4) the launch floor, not the bytes bound, is the least time
+    records.append(dict(bag_phases(dev, flush, model.user_emb),
+                        launch_floor_ms=floor_ms))
     del model
     torch.cuda.empty_cache()
     records.append(pna_phases(dev, flush, args.profile, base, floor_ms))

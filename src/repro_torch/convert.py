@@ -1,8 +1,9 @@
 """Carry the JAX reference's state across, as numpy arrays.
 
-The JAX package's ``LayeredGraph``, ``AttributeTable``, serving-engine
-shards and model parameter trees are turned into numpy by the caller
-(``np.asarray`` on each field or leaf); these functions build the port's
+The JAX package's ``LayeredGraph``, ``AttributeTable``, oracle
+partitions, serving-engine shards and model parameter trees are turned
+into numpy by the caller (``np.asarray`` on each field or leaf); these
+functions build the port's
 counterparts from that numpy alone, so this module never needs JAX.  The
 parity tests use them to search the reference's own graphs and run its
 own weights.
@@ -14,6 +15,7 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.baselines import OraclePartitionIndex
 from repro_torch.core.graph import LayeredGraph
 from repro_torch.core.index import AcornConfig, HybridIndex
 from repro_torch.core.predicates import AttributeTable, SelectivitySketch
@@ -41,6 +43,25 @@ def graph_from_arrays(neighbors: Sequence[np.ndarray],
         node_ids=tuple(_i32(a, dev) for a in node_ids),
         entry_point=_i32(entry_point, dev).reshape(()),
         levels=_i32(levels, dev))
+
+
+def oracle_from_arrays(partitions: Mapping[int, Sequence],
+                       M: int, device: DeviceLike = "cuda"
+                       ) -> OraclePartitionIndex:
+    """The port's :class:`OraclePartitionIndex` from a reference one's
+    partitions given as numpy: ``{pid: (graph, x_p, gids)}``, where
+    ``graph`` holds the keyword arguments of :func:`graph_from_arrays`
+    but ``device``, ``x_p`` is the partition's (n_p, d) float32 rows and
+    ``gids`` their (n_p,) global ids.  ``M`` is the search's neighbor
+    bound (the reference's ``m``)."""
+    dev = resolve_device(device)
+    parts = {}
+    for pid, (graph, xp, gids) in partitions.items():
+        parts[pid] = (
+            graph_from_arrays(device=dev, **graph),
+            torch.from_numpy(np.array(xp, dtype=np.float32)).to(dev),
+            _i32(gids, dev))
+    return OraclePartitionIndex(partitions=parts, m=M)
 
 
 def table_from_arrays(int_cols: Mapping[str, np.ndarray],

@@ -1,4 +1,4 @@
-"""Bulk (batch-parallel) construction of ACORN-γ / ACORN-1 indices.
+"""Bulk (batch-parallel) construction of ACORN-γ / ACORN-1 / HNSW indices.
 
 Each level is built as one batch computation, on the device of ``x``:
 
@@ -12,7 +12,9 @@ Each level is built as one batch computation, on the device of ``x``:
      keep the M_β nearest candidates, then scan the tail keeping a
      candidate only if the 2-hop set H of previously kept candidates does
      not already cover it; stop when the stored list is full.
-  4. Reverse-edge slack slots (:func:`reverse_slack`).
+  4. For the HNSW baselines (post-filter and oracle partitions), the RNG
+     heuristic pruning of Malkov & Yashunin (:func:`rng_prune`) instead.
+  5. Reverse-edge slack slots (:func:`reverse_slack`).
 
 The outputs are identical to the reference builder's on the same levels,
 except where the exact KNN meets a near tie in distance (the two packages'
@@ -32,10 +34,13 @@ from .graph import INVALID, LayeredGraph, assign_levels
 
 Tensor = torch.Tensor
 
+INF = float("inf")
+
 # element budgets of one block of work (bounds peak memory)
 _KNN_QBLOCK = 1024
 _COMPRESS_ELEMS = 1 << 30
 _SLACK_ELEMS = 1 << 28
+_PRUNE_ELEMS = 1 << 29
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +206,64 @@ def acorn_compress(cand_lists: Tensor, m_beta: int, cap_out: int,
 
 
 # ---------------------------------------------------------------------------
+# RNG heuristic pruning (Malkov & Yashunin) — for the HNSW baselines
+# ---------------------------------------------------------------------------
+
+
+def _rng_prune_block(cand: Tensor, d_vc: Tensor, x_cand: Tensor,
+                     m_out: int) -> Tensor:
+    """cand (B, K) sorted ids, d_vc (B, K) dist(v, c), x_cand (B, K, d)
+    vectors.  Keep c_j iff dist(v, c_j) < dist(c_j, c_k) for every
+    previously kept c_k; at most ``m_out`` are kept, packed in order."""
+    bsz, kc = cand.shape
+    dev = cand.device
+    # the reference's arithmetic: sum of squared differences over d
+    diff = x_cand[:, :, None, :] - x_cand[:, None, :, :]
+    d_cc = diff.square_().sum(dim=-1)  # (B, K, K)
+    del diff
+    valid = cand >= 0
+    kept = torch.zeros((bsz, kc), dtype=torch.bool, device=dev)
+    cnt = torch.zeros((bsz,), dtype=torch.int32, device=dev)
+    for j in range(kc):
+        d_to_kept = torch.where(kept, d_cc[:, j, :], INF).amin(dim=1)
+        keep_j = valid[:, j] & (cnt < m_out) & (d_vc[:, j] < d_to_kept)
+        kept[:, j] = keep_j
+        cnt += keep_j.to(torch.int32)
+    rank = torch.cumsum(kept.to(torch.int64), dim=1) - 1
+    scatter_to = torch.where(kept & (rank < m_out), rank,
+                             torch.full_like(rank, m_out))
+    out = torch.full((bsz, m_out + 1), INVALID, dtype=torch.int32,
+                     device=dev)
+    out.scatter_(1, scatter_to, torch.where(kept, cand, INVALID))
+    return out[:, :m_out]
+
+
+def rng_prune(x_members: Tensor, cand: Tensor, m_out: int,
+              block: Optional[int] = None) -> Tensor:
+    """RNG-prune every member's sorted candidate list (local ids, -1
+    padded) to at most ``m_out`` entries; blocked over members.  The
+    output does not depend on ``block`` (default: a (block, K, K, d)
+    difference tensor of at most ``_PRUNE_ELEMS`` elements)."""
+    m, kc = cand.shape
+    if block is None:
+        block = max(1, _PRUNE_ELEMS // max(kc * kc * x_members.shape[1], 1))
+    outs = []
+    for start in range(0, m, block):
+        cb = cand[start:start + block]
+        ok = cb >= 0
+        xc = torch.where(ok[:, :, None],
+                         x_members[cb.clamp(0, m - 1).long()], 0.0)
+        diff = xc - x_members[start:start + block][:, None, :]
+        d_vc = torch.where(ok, (diff * diff).sum(dim=-1), INF)
+        del diff
+        outs.append(_rng_prune_block(cb, d_vc, xc, m_out))
+    if not outs:
+        return torch.zeros((0, m_out), dtype=torch.int32,
+                           device=cand.device)
+    return torch.cat(outs, dim=0)
+
+
+# ---------------------------------------------------------------------------
 # Top-level bulk builders
 # ---------------------------------------------------------------------------
 
@@ -212,6 +275,7 @@ def build_bulk(
     variant: str = "acorn-gamma",
     gamma: int = 1,
     m_beta: Optional[int] = None,
+    efc: Optional[int] = None,
     t_hop: Optional[int] = None,
     max_level: Optional[int] = None,
     compress: bool = True,
@@ -224,18 +288,23 @@ def build_bulk(
                       compression with parameter M_β (paper §5.2).
       'acorn-1'     — γ=1, M_β=M: plain KNN lists (M per level, 2M at
                       level 0), no pruning (paper §5.3).
+      'hnsw'        — ``efc`` candidates (default max(2M, 40)), RNG-pruned
+                      into M (2M at level 0) less the reverse-edge slack;
+                      used by the post-filter baseline and oracle
+                      partitions.
     ``levels`` (n,) fixes the level assignment (the reference's own draw,
     for parity); otherwise ``generator`` draws it.
     """
-    if variant not in ("acorn-gamma", "acorn-1"):
-        raise ValueError(f"variant {variant!r}: the HNSW baseline builder "
-                         "(rng_prune/build_hnsw) is not ported yet")
+    if variant not in ("acorn-gamma", "acorn-1", "hnsw"):
+        raise ValueError(f"variant {variant!r}")
     n, _ = x.shape
     dev = x.device
     if variant == "acorn-1":
         gamma, m_beta = 1, M
     if m_beta is None:
         m_beta = 2 * M
+    if efc is None:
+        efc = max(2 * M, 40)
     if t_hop is None:
         # coverage may only be claimed through entries the covering node
         # provably retains after its own compression: its first M_β
@@ -252,15 +321,24 @@ def build_bulk(
         m = int(members.shape[0])
         xm = x[members.long()]
         r_slack = max(2, M // 2)
-        k_cand = min(M * gamma, max(m - 1, 1))
-        cap = 2 * M if (lvl == 0 and variant == "acorn-1") else (
-            M if variant == "acorn-1" else M * gamma)
+        if variant == "hnsw":
+            k_cand = min(efc, max(m - 1, 1))
+            cap = 2 * M if lvl == 0 else M
+        else:
+            k_cand = min(M * gamma, max(m - 1, 1))
+            cap = 2 * M if (lvl == 0 and variant == "acorn-1") else (
+                M if variant == "acorn-1" else M * gamma)
         if m <= 1:
             local = torch.full((m, cap), INVALID, dtype=torch.int32,
                                device=dev)
         else:
             knn_local = knn_among(xm, k_cand)
-            if variant == "acorn-gamma" and lvl == 0 and compress:
+            if variant == "hnsw":
+                # RNG prune into cap - r slots; reverse edges fill the
+                # rest, keeping HNSW's nominal M / 2M degree budget exact
+                local = rng_prune(xm, knn_local, max(cap - r_slack, 1))
+                local = with_reverse_slack(local, r_slack)
+            elif variant == "acorn-gamma" and lvl == 0 and compress:
                 cap0 = min(M * gamma, m_beta + 2 * M)
                 local = acorn_compress(knn_local, min(m_beta, k_cand),
                                        cap_out=cap0,
@@ -296,3 +374,7 @@ def build_acorn_gamma(x, generator, M, gamma, m_beta=None, **kw
 
 def build_acorn_1(x, generator, M, **kw) -> LayeredGraph:
     return build_bulk(x, generator, M, variant="acorn-1", **kw)
+
+
+def build_hnsw(x, generator, M, efc=None, **kw) -> LayeredGraph:
+    return build_bulk(x, generator, M, variant="hnsw", efc=efc, **kw)

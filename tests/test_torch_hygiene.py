@@ -19,7 +19,8 @@ import repro_torch
 from repro_torch.configs.pna import ARCH as PNA_ARCH
 from repro_torch.configs.two_tower_retrieval import REDUCED
 from repro_torch.convert import (engine_from_arrays, graph_from_arrays,
-                                 pna_params_from_arrays, table_from_arrays,
+                                 oracle_from_arrays, pna_params_from_arrays,
+                                 table_from_arrays,
                                  two_tower_params_from_arrays)
 from repro_torch.core import (AcornConfig, HybridIndex, sentinel_result)
 from repro_torch.data import make_hcps_dataset, make_lcps_dataset
@@ -88,6 +89,10 @@ ENTRY_POINTS = {
     "graph_from_arrays": lambda: graph_from_arrays(
         [np.full((2, 2), -1)], [np.arange(2)], [np.arange(2)], 0,
         np.zeros(2)),
+    "oracle_from_arrays": lambda: oracle_from_arrays(
+        {0: (dict(neighbors=[np.full((2, 2), -1)], pos=[np.arange(2)],
+                  node_ids=[np.arange(2)], entry_point=0,
+                  levels=np.zeros(2)), np.zeros((2, 4)), np.arange(2))}, 4),
     "table_from_arrays": lambda: table_from_arrays({"label": np.zeros(4)}),
     "sentinel_result": lambda: sentinel_result(2, 3),
     "HybridIndex.build": lambda: HybridIndex.build(

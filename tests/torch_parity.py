@@ -185,3 +185,28 @@ def build(mod, desc):
     if kind == "Not":
         return mod.Not(build(mod, desc[1]))
     return getattr(mod, kind)(*desc[1:])
+
+
+def insert_near_tie(x, v, pre, a, b):
+    """Does a near tie explain why inserting node ``v`` into the tables
+    ``pre`` (numpy, per level) gave ``a`` in one package and ``b`` in the
+    other?  Where v's own list differs at some level, the float64
+    distances from x[v] to the ids of both lists must hold a near tie; a
+    reverse list that differs while v's lists agree must hold one among
+    its owner's distances to its earlier entries and v.  (A copy of
+    ``chip_smoke.insert_near_tie``.)"""
+    x = np.asarray(x, np.float64)
+
+    def tie(owner, ids):
+        d = np.sort(((x[ids] - x[owner]) ** 2).sum(-1))
+        return bool((np.diff(d) <= NEAR_TIE_REL * d[1:]).any())
+
+    for lvl in range(len(pre)):
+        if not np.array_equal(a[lvl][v], b[lvl][v]):
+            ids = np.union1d(a[lvl][v], b[lvl][v])
+            return tie(v, ids[ids >= 0])
+    for lvl in range(len(pre)):
+        for u in np.nonzero((a[lvl] != b[lvl]).any(axis=1))[0]:
+            if not tie(u, np.append(pre[lvl][u][pre[lvl][u] >= 0], v)):
+                return False
+    return True
