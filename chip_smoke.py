@@ -5,8 +5,11 @@
                             # with Figure 7's baselines and Table 4's
                             # incremental builds beside it,
                             # two-tower retrieval_cand (n = 1,048,576),
-                            # embedding_bag, PNA molecule inference and
-                            # the sharded HCPS serving engine (n = 2^20)
+                            # embedding_bag, PNA molecule inference, the
+                            # sharded HCPS serving engine (n = 2^20) and
+                            # the distributed paths on a one-rank NCCL
+                            # mesh (acorn serve_1m and serve_25m, the
+                            # SPMD engine)
     python3 chip_smoke.py --baseline DIR   # also time the gather_distance.cu,
                             # neighbor_expand.cu, filtered_topk.cu and
                             # pna_aggregate.cu in DIR (an earlier version)
@@ -18,7 +21,10 @@ Phases, each printed on its own line:
 
   device   the card's name and power limit (nvidia-smi); build the CUDA
            kernels from ``src/repro_torch/csrc`` (one nvcc per source, all
-           started together) and print the build time.
+           started together) and print the build time; join a one-rank
+           ``nccl`` process group (``HashStore``, rank 0 of 1, a 60 s
+           collective timeout) and check that an all-gather of a CUDA
+           tensor returns it (``mesh_group``).
   build    ``HybridIndex.build`` on the card: LCPS data of the paper's
            §7.1 SIFT1M shape (n = 1M, d = 128, 12 uniform labels,
            equality predicates), ACORN-γ with M = 32, γ = 12, M_β = 64.
@@ -96,7 +102,12 @@ Phases, each printed on its own line:
            batch-512 ``serve_p99``.  With ``--profile``, one request
            traced: filtered_topk's device launches and time per launch.
   parity   8 of those requests on a CPU copy of the model, candidates and
-           table: ids identical except at near ties, scores within 1e-5.
+           table: ids identical except at near ties, scores within 1e-5;
+           then the same 8 through the mesh-explicit
+           ``filtered_retrieval_step`` on ``make_host_mesh()`` (matmul +
+           top-k, gathered over the one-rank mesh): ids equal
+           ``retrieval_cand``'s except at near ties (its masked candidates,
+           kept with a -inf score, compared as -1 padding), step time.
   bag      the ``embedding_bag`` op (forward and gradient) over the same
            model's ``user_emb`` table (4,194,304 x 256, 4.29 GB): the
            kernel against its plain version at ``BAG_EDGE_CASES`` and at
@@ -152,7 +163,33 @@ Phases, each printed on its own line:
            four shards (``convert.engine_from_arrays``), ids identical
            except at near ties.  With ``--profile``, one 32-query batch
            traced.
-
+  mesh     the distributed paths on the one-rank NCCL group, at full
+           width.  ``mesh_engine``: the launcher's engine with one shard
+           and ``ExecutionSpec(corpus_parallel=1)`` over the engine
+           phase's corpus, so it takes the SPMD path on a 1 x 1 mesh
+           (checked); gather_distance and neighbor_expand held to their
+           plain versions on the (2^20, 512) shard that path searches, as
+           the engine phase holds them on its own shard; the first 256
+           closed-loop queries through ``search_batch`` (launch counters
+           zeroed just before, read just after: both graph kernels must
+           launch), again (no new variant), and through
+           ``search_batch_host``: bit-identical; 16 graph-route queries
+           through the SPMD program against a CPU copy's host loop (plain
+           versions), ids identical except at near ties;
+           ``fail_shard(0)`` gives the all-down sentinel and
+           ``rebuild_shard(0)`` the same ids; build s, peak memory, QPS of
+           both paths.  ``acorn_serve``: the ``acorn`` arch's serve step
+           (``get_arch("acorn")``, ``make_host_mesh()``) at ``serve_1m``
+           (B = 512, n = 2^20, d = 512, k = 10; fp32 corpus, bool masks
+           at 0.5 drawn from a seed on the card), ``optimized=False`` and
+           ``True`` (block 8,192, the reference's, and 65,536), then at
+           ``serve_25m`` (n = 3 x 2^23: 51.5 GB of corpus and 12.9 GB of
+           masks), ``optimized=True`` only — ``False``'s score matrix alone
+           would take 51.5 GB more; every id passes its mask, the variants
+           agree but for near ties, 16 (8) queries equal an exact float64
+           recompute; ms per call (cold L2), QPS, peak memory and the
+           bound (bytes of corpus + masks at 3.35 TB/s against fp32 FLOPs
+           at 67 TFLOP/s).
 The second-to-last lines are the ``{"kernels": [...]}`` record and the
 card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
@@ -1173,6 +1210,32 @@ def retrieve_phases(dev, flush, profile: bool, base) -> tuple:
     log("parity", path="retrieval_cand", requests=RETRIEVE_PARITY,
         near_ties=ties, max_abs_err=err,
         seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # the mesh-explicit step (filtered_retrieval_step: matmul + top-k,
+    # gathered over the mesh) on a one-rank mesh against retrieval_cand's
+    # ids; it keeps a masked candidate's id beside a -inf score, where
+    # filtered_topk pads with -1
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh_step = arch.step_fn(cfg, "retrieval_cand", mesh=make_host_mesh())
+    ties, err, mesh_ms = 0, 0.0, []
+    for i in sel[:RETRIEVE_PARITY]:
+        mask = mask_of(preds[i], table)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ids_m, s_m = mesh_step(model, batches[i], cand, mask, 0)
+        torch.cuda.synchronize()
+        mesh_ms.append((time.perf_counter() - t1) * 1e3)
+        ids_m = torch.where(torch.isfinite(s_m), ids_m,
+                            torch.full_like(ids_m, -1))
+        e, t = assert_topk_match(ids_m, s_m, *results[i],
+                                 model.user_embed(batches[i]), cand, "ip",
+                                 f"retrieval request {i} mesh step vs "
+                                 "retrieval_cand", dist_atol=1e-5)
+        ties, err = ties + t, max(err, e)
+    log("mesh", path="filtered_retrieval_step", mesh="1x1",
+        requests=RETRIEVE_PARITY, candidates=N_CAND, k=TOPK,
+        step_p50_ms=f"{np.percentile(mesh_ms, 50):.4f}",
+        near_ties_vs_retrieval_cand=ties, max_abs_err=err)
     rec.update(launches=launches, name="filtered_topk", route="cuda",
                source="src/repro_torch/csrc/filtered_topk.cu",
                replaces="src/repro/kernels/filtered_topk/kernel.py:71")
@@ -1738,54 +1801,105 @@ def engine_build(dev, n: int = ENGINE_N, d: int = ENGINE_D) -> tuple:
     return ds, engine
 
 
-def engine_kernels(engine, closed, flush, base, by_name) -> None:
+def engine_kernels(engine, closed, flush, base, by_name, phase="engine",
+                   graph_x=None) -> None:
     """gather_distance (d = 512, l2 and ip, 10 % -1 ids) and
     neighbor_expand (compress and two_hop, m = 16, m_beta = 32, with and
     without the pass mask and visited set) against their plain versions
-    on shard 0's graph and the first ENGINE_BATCH closed-loop queries; both
+    on shard 0's graph (or the (graph, x) pair ``graph_x``: the tensors a
+    path searches) and the first ENGINE_BATCH closed-loop queries; both
     timed as the other phases time them and added to their records'
-    ``other_shapes``."""
+    ``other_shapes`` under ``phase``."""
     import torch
     from repro_torch.core import neighbor_rows
     from repro_torch.kernels.gather_distance import (gather_distance_cuda,
                                                      gather_distance_ref)
     shard = engine.shards[0].index
-    g, dev = shard.graph, shard.x.device
-    n = shard.x.shape[0]
+    g, x = graph_x if graph_x is not None else (shard.graph, shard.x)
+    dev, n = x.device, x.shape[0]
     rng = np.random.default_rng(4)
     nodes = torch.as_tensor(rng.integers(0, n, size=ENGINE_BATCH),
                             device=dev)
     q = closed.xq[:ENGINE_BATCH].contiguous()
     pm = engine.compile(closed.predicates[:ENGINE_BATCH]).evaluate(
         shard.table).contiguous()
+    if pm.shape[1] != n:
+        raise AssertionError(f"pass masks of {pm.shape[1]} rows for {n}")
     gen = torch.Generator(device=dev).manual_seed(4)
     vis = torch.rand((ENGINE_BATCH, n), generator=gen, device=dev) < 0.02
     ids = neighbor_rows(g, 0, nodes)[:, :ENGINE_M].contiguous()
     ids[torch.as_tensor(rng.random(ids.shape) < 0.1, device=dev)] = -1
     err = 0.0
     for metric in ("l2", "ip"):
-        got = gather_distance_cuda(ids, q, shard.x, metric)
+        got = gather_distance_cuda(ids, q, x, metric)
         torch.cuda.synchronize()
         err = max(err, assert_gather_close(
-            got, gather_distance_ref(ids, q, shard.x, metric),
-            f"gather_distance engine {metric}"))
-    gd = measure_gather(ids, q, shard.x, "l2", flush, base,
-                        f"engine shard 0, d={shard.x.shape[1]}")
+            got, gather_distance_ref(ids, q, x, metric),
+            f"gather_distance {phase} {metric}"))
+    gd = measure_gather(ids, q, x, "l2", flush, base,
+                        f"{phase} shard 0, n={n}, d={x.shape[1]}")
     gd["max_abs_err"] = max(err, gd["max_abs_err"])
     row0 = neighbor_rows(g, 0, nodes).contiguous()
     calls = [(row0, g.neighbors[0], g.pos[0], pm, vis,
               dict(strategy=strategy, m=ENGINE_M, m_beta=mb))
              for strategy, mb in (("compress", ENGINE_M_BETA),
                                   ("two_hop", 0))]
-    log("kernels", kernel="neighbor_expand", path="engine",
-        cases=check_expand(calls, "engine rows"), bit_identical=True)
+    log("kernels", kernel="neighbor_expand", path=phase,
+        cases=check_expand(calls, f"{phase} rows"), bit_identical=True)
     ne = measure_expand((row0, g.neighbors[0], g.pos[0], pm, vis),
                         dict(strategy="compress", m=ENGINE_M,
                              m_beta=ENGINE_M_BETA), flush, base,
-                        f"engine shard 0, M={ENGINE_M}")
+                        f"{phase} shard 0, n={n}, M={ENGINE_M}")
     for name, rec in (("gather_distance", gd), ("neighbor_expand", ne)):
         by_name[name].setdefault("other_shapes", []).append(
-            dict(phase="engine", **rec))
+            dict(phase=phase, **rec))
+
+
+def cpu_copy_parity(engine, closed, program, rows, path: str) -> None:
+    """The closed-loop queries ``rows`` through ``engine.search_batch`` on
+    the card and through the host loop of a CPU copy of its shards
+    (``convert.engine_from_arrays``, plain versions): routes equal, ids
+    equal but for near ties, distances within the stated tolerance."""
+    import torch
+    from repro_torch.convert import engine_from_arrays
+    from repro_torch.core import SearchRequest
+    from repro_torch.serve import EngineConfig
+
+    def arrays(sh):
+        t, gr = sh.index.table, sh.index.graph
+        return dict(
+            graph=dict(neighbors=[a.cpu().numpy() for a in gr.neighbors],
+                       pos=[a.cpu().numpy() for a in gr.pos],
+                       node_ids=[a.cpu().numpy() for a in gr.node_ids],
+                       entry_point=gr.entry_point.cpu().numpy(),
+                       levels=gr.levels.cpu().numpy()),
+            x=sh.index.x.cpu().numpy(),
+            table=dict(int_cols={c: v.cpu().numpy()
+                                 for c, v in t.int_cols.items()},
+                       bitset_cols={c: v.cpu().numpy().view(np.uint32)
+                                    for c, v in t.bitset_cols.items()},
+                       str_cols=dict(t.str_cols),
+                       n_keywords=dict(t.n_keywords)))
+
+    t0 = time.perf_counter()
+    cfg = engine.cfg
+    cpu_engine = engine_from_arrays(
+        [arrays(sh) for sh in engine.shards], engine.acorn,
+        EngineConfig(batch_size=cfg.batch_size, k=cfg.k,
+                     n_shards=len(engine.shards), host_fallback=True),
+        seed=0, device="cpu")
+    ti = torch.as_tensor(rows, device=closed.xq.device)
+    req = dict(predicates=program.take(rows), k=cfg.k)
+    on_card = engine.search_batch(SearchRequest(xq=closed.xq[ti], **req))
+    on_cpu = cpu_engine.search_batch(SearchRequest(xq=closed.xq[ti].cpu(),
+                                                   **req))
+    if not np.array_equal(on_card.routes, on_cpu.routes):
+        raise AssertionError(f"{path} card vs CPU engine: routes differ")
+    err, ties = assert_topk_match(
+        on_card.ids, on_card.dists, on_cpu.ids, on_cpu.dists,
+        closed.xq[ti].cpu(), cpu_engine._x, "l2", f"{path} card vs CPU")
+    log("parity", path=path, queries=len(rows), near_ties=ties,
+        max_abs_err=err, seconds=f"{time.perf_counter() - t0:.1f}")
 
 
 def engine_serving(dev, ds, engine, closed, kinds, profile: bool) -> dict:
@@ -1796,10 +1910,8 @@ def engine_serving(dev, ds, engine, closed, kinds, profile: bool) -> dict:
     batch.  Any failed check raises.  Returns the closed loop's launches
     of each of the port's kernels by name."""
     import torch
-    from repro_torch.convert import engine_from_arrays
     from repro_torch.core import SearchRequest, SearchResult, masked_topk
-    from repro_torch.serve import (EngineConfig, RuntimeConfig,
-                                   ServingRuntime)
+    from repro_torch.serve import RuntimeConfig, ServingRuntime
     k, bsz = ENGINE_K, ENGINE_BATCH
     program = engine.compile(closed.predicates)
     n_closed = closed.xq.shape[0]
@@ -1953,42 +2065,9 @@ def engine_serving(dev, ds, engine, closed, kinds, profile: bool) -> dict:
         raise AssertionError("rebuild_shard(1): ids differ from healthy")
 
     # ---- parity: the card's engine vs a CPU copy of its four shards ----
-    t0 = time.perf_counter()
-    gsel = np.nonzero(res.routes == "graph")[0][:ENGINE_PARITY]
-
-    def arrays(sh):
-        t, gr = sh.index.table, sh.index.graph
-        return dict(
-            graph=dict(neighbors=[a.cpu().numpy() for a in gr.neighbors],
-                       pos=[a.cpu().numpy() for a in gr.pos],
-                       node_ids=[a.cpu().numpy() for a in gr.node_ids],
-                       entry_point=gr.entry_point.cpu().numpy(),
-                       levels=gr.levels.cpu().numpy()),
-            x=sh.index.x.cpu().numpy(),
-            table=dict(int_cols={c: v.cpu().numpy()
-                                 for c, v in t.int_cols.items()},
-                       bitset_cols={c: v.cpu().numpy().view(np.uint32)
-                                    for c, v in t.bitset_cols.items()},
-                       str_cols=dict(t.str_cols),
-                       n_keywords=dict(t.n_keywords)))
-
-    cpu_engine = engine_from_arrays(
-        [arrays(sh) for sh in engine.shards], engine.acorn,
-        EngineConfig(batch_size=bsz, k=k, n_shards=len(engine.shards)),
-        seed=0, device="cpu")
-    ti = torch.as_tensor(gsel, device=dev)
-    req = dict(predicates=program.take(gsel), k=k)
-    on_card = engine.search_batch(SearchRequest(xq=closed.xq[ti], **req))
-    on_cpu = cpu_engine.search_batch(SearchRequest(xq=closed.xq[ti].cpu(),
-                                                   **req))
-    if not np.array_equal(on_card.routes, on_cpu.routes):
-        raise AssertionError("card vs CPU engine: routes differ")
-    err, ties = assert_topk_match(
-        on_card.ids, on_card.dists, on_cpu.ids, on_cpu.dists,
-        closed.xq[ti].cpu(), cpu_engine._x, "l2", "engine card vs CPU")
-    log("parity", path="engine", queries=len(gsel), near_ties=ties,
-        max_abs_err=err, seconds=f"{time.perf_counter() - t0:.1f}")
-    del cpu_engine
+    cpu_copy_parity(engine, closed, program,
+                    np.nonzero(res.routes == "graph")[0][:ENGINE_PARITY],
+                    "engine")
 
     if profile:
         profile_call(lambda: engine.search_batch(SearchRequest(
@@ -2451,6 +2530,261 @@ def incremental_phase(dev, x, xq, n_inc: int = N_INC,
     return tti
 
 
+# ---- mesh: the distributed paths on a one-rank process group ----
+MESH_SEED = 0
+MESH_CHECK = {"serve_1m": 16, "serve_25m": 8}  # queries held to fp64
+MESH_TIMED = 3              # timed calls per acorn variant, after one warm-up
+MESH_EXACT_ROWS = 1 << 18   # rows per block of the fp64 recompute
+MESH_ENGINE_QUERIES = 256   # closed-loop queries through each engine path
+MESH_PARITY = 16            # of them, SPMD on the card vs a CPU copy
+MESH_CHUNK = 8192           # the reference's scan block (its step default)
+MESH_WIDE_CHUNK = 1 << 16   # a wider block, timed beside it (same answer)
+GROUP_TIMEOUT_S = 60        # a collective waits this long, then raises
+
+
+def mesh_group(dev) -> None:
+    """Join a one-rank default process group on ``dev`` (``nccl`` on the
+    card, ``gloo`` on the CPU; a ``HashStore``, so no TCP) and check that an
+    all-gather of a tensor on ``dev`` returns it unchanged."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import local_device_count
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo", store=dist.HashStore(),
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    t = torch.arange(4096, dtype=torch.float32, device=dev)
+    parts = [torch.empty_like(t)]
+    dist.all_gather(parts, t)
+    sync(dev)
+    if not torch.equal(parts[0], t):
+        raise AssertionError("an all-gather over one rank changed its input")
+    log("mesh", backend=dist.get_backend(), world_size=dist.get_world_size(),
+        local_device_count=local_device_count(), all_gather_equal=True)
+
+
+def exact_topk64(x, q, masks, k: int, rows: int = MESH_EXACT_ROWS) -> tuple:
+    """The exact masked top-k of queries ``q`` over ``x`` in float64 (the
+    expanded form), in blocks of ``rows`` rows: (ids, squared distances),
+    -1 / inf where fewer than k rows pass."""
+    import torch
+    qd = q.double()
+    qn = (qd * qd).sum(dim=1, keepdim=True)
+    b = q.shape[0]
+    best_d = torch.full((b, k), float("inf"), dtype=torch.float64,
+                        device=q.device)
+    best_i = torch.full((b, k), -1, dtype=torch.int64, device=q.device)
+    for s in range(0, x.shape[0], rows):
+        xc = x[s:s + rows].double()
+        dd = qn + (xc * xc).sum(dim=1)[None, :] - 2.0 * (qd @ xc.T)
+        dd = torch.where(masks[:, s:s + rows], dd,
+                         torch.full_like(dd, float("inf")))
+        ids = torch.arange(s, s + xc.shape[0], device=q.device)
+        cd = torch.cat([best_d, dd], dim=1)
+        ci = torch.cat([best_i, ids.expand(b, -1)], dim=1)
+        best_d, pos = torch.topk(cd, k, dim=1, largest=False, sorted=True)
+        best_i = torch.gather(ci, 1, pos)
+    best_i = torch.where(torch.isfinite(best_d), best_i,
+                         torch.full_like(best_i, -1))
+    return best_i.to(torch.int32), best_d
+
+
+def acorn_serve(dev, shape: str, variants, flush,
+                reduced: bool = False) -> dict:
+    """The ``acorn`` arch's serve step at ``shape`` on ``make_host_mesh()``
+    (one rank): inputs from ``random_inputs`` (masks at density 0.5, drawn
+    as bool); each variant, an (``optimized``, ``chunk``) pair, run once,
+    checked (every id passes its mask, -1 ids exactly where dists are
+    infinite) and, on the card, timed (``MESH_TIMED`` calls, cold L2)
+    beside the bound of its bytes (corpus + masks + queries + result) and
+    fp32 FLOPs (2 B n d); every variant held to the first (near ties
+    only); the first ``MESH_CHECK[shape]`` queries held to
+    ``exact_topk64``.  Returns {variant: ms} (``None`` off the card)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.acorn import ACORN_SHAPES, REDUCED_ACORN_SHAPES
+    from repro_torch.launch.mesh import make_host_mesh
+    arch = get_arch("acorn")
+    spec = (REDUCED_ACORN_SHAPES if reduced else ACORN_SHAPES)[shape]
+    b, n, d, k = spec["batch"], spec["n"], spec["d"], spec["k"]
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    x, q, masks = arch.random_inputs(shape, seed=MESH_SEED,
+                                     reduced=reduced, device=dev)
+    sync(dev)
+    data_s = time.perf_counter() - t0
+    mesh = make_host_mesh()
+    args = arch.in_shardings(None, shape, mesh)(x, q, masks)
+    nbytes = (x.numel() * 4 + masks.numel() + q.numel() * 4 + b * k * 8)
+    bound_ms, bound_by = bound(nbytes, 2.0 * b * n * d)
+    log("mesh", arch="acorn", shape=shape, batch=b, n=n, d=d, k=k,
+        mesh=dict(zip(mesh.axis_names, mesh.shape)), data_s=f"{data_s:.3f}",
+        input_bytes=nbytes, bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+    results, out = {}, {}
+    for opt, chunk in variants:
+        if cuda:   # each variant's own peak, over the inputs
+            torch.cuda.reset_peak_memory_stats()
+        step = arch.step_fn(None, shape, reduced=reduced, mesh=mesh, k=k,
+                            optimized=opt, chunk=chunk)
+        t0 = time.perf_counter()
+        ids, dist_ = step(*args)
+        sync(dev)
+        first_s = time.perf_counter() - t0
+        if ids.shape != (b, k) or not torch.equal(torch.isfinite(dist_),
+                                                  ids >= 0):
+            raise AssertionError(f"acorn {shape}: ids / dists malformed")
+        passing = torch.gather(masks, 1, ids.clamp(min=0).long())
+        if not bool((passing | (ids < 0)).all()):
+            raise AssertionError(f"acorn {shape}: an id fails its mask")
+        ms = time_ms(lambda: step(*args), MESH_TIMED, flush, warmup=0) \
+            if cuda else None
+        out[opt, chunk] = ms
+        results[opt, chunk] = (ids, dist_)
+        log("mesh", arch="acorn", shape=shape, optimized=opt,
+            chunk=chunk if opt else "-", first_call_s=f"{first_s:.3f}",
+            ms=f"{ms:.3f}" if cuda else "not_measured",
+            qps=f"{b / ms * 1e3:.1f}" if cuda else "not_measured",
+            bound_ms=f"{bound_ms:.4f}",
+            peak_memory=(torch.cuda.max_memory_allocated() - mem0 if cuda
+                         else "not_measured"))
+    (ia, da), *others = results.values()
+    for key, (ib, db) in zip(list(results)[1:], others):
+        err, ties = assert_topk_match(ib, db, ia, da, q, x, "l2",
+                                      f"acorn {shape} {key} vs "
+                                      f"{variants[0]}")
+        log("mesh", arch="acorn", shape=shape, variant=key,
+            vs=variants[0], near_ties=ties, max_abs_err=err)
+    c = MESH_CHECK[shape] if not reduced else 4
+    want_i, want_d = exact_topk64(x, q[:c], masks[:c], k)
+    for key, (ids, dist_) in results.items():
+        err, ties = assert_topk_match(ids[:c], dist_[:c], want_i,
+                                      want_d.float(), q[:c], x, "l2",
+                                      f"acorn {shape} {key} vs float64")
+        log("parity", path=f"acorn {shape}", variant=key, queries=c,
+            reference="exact float64", near_ties=ties, max_abs_err=err)
+    return out
+
+
+def mesh_engine(dev, ds, closed, n_queries: int = MESH_ENGINE_QUERIES,
+                profile: bool = False, kernels=None) -> dict:
+    """The serving engine's SPMD path on ``dev``: the launcher's
+    configuration (``AcornConfig(M=16, gamma=12, m_beta=32,
+    ef_search=96)``, batches of 32, k = 10) with one shard and
+    ``ExecutionSpec(corpus_parallel=1)`` over the engine phase's corpus
+    ``ds``, so the engine takes the SPMD path on a 1 x 1 mesh; the first
+    ``n_queries`` closed-loop queries through ``search_batch`` (the SPMD
+    program; launch counters zeroed just before, read just after), again
+    (no new variant), and through ``search_batch_host``: ids and dists
+    bit-identical, every id passing its predicate; ``MESH_PARITY`` of
+    them through the SPMD program held to a CPU copy's host loop (plain
+    versions); ``fail_shard(0)`` returns the all-down sentinel, and after
+    ``rebuild_shard(0)`` the ids come back.  ``kernels``, a (flush, base,
+    by_name) triple, holds gather_distance and neighbor_expand to their
+    plain versions on the shard the SPMD program searches
+    (``engine_kernels``, phase "mesh").  With ``profile``, one batch
+    traced on each path.  Returns the SPMD run's launches by kernel
+    name."""
+    import torch
+    from repro_torch.core import (AcornConfig, ExecutionSpec, SearchRequest,
+                                  SearchResult)
+    from repro_torch.distributed.corpus_parallel import shard_slice
+    from repro_torch.serve import EngineConfig, ServingEngine
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+    acorn = AcornConfig(M=ENGINE_M, gamma=ENGINE_GAMMA, m_beta=ENGINE_M_BETA,
+                        ef_search=ENGINE_EF_SEARCH)
+    cfg = EngineConfig(batch_size=ENGINE_BATCH, k=ENGINE_K, n_shards=1,
+                       spec=ExecutionSpec(corpus_parallel=1))
+    t0 = time.perf_counter()
+    engine = ServingEngine(ds.x, ds.table, acorn, cfg, seed=0, device=dev)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    if engine.spmd_mesh_shape() != (1, 1):
+        raise AssertionError(f"engine mesh {engine.spmd_mesh_shape()}, "
+                             "not (1, 1)")
+    if kernels is not None:   # the (2^20, 512) shard the program reads
+        engine_kernels(engine, closed, *kernels, phase="mesh",
+                       graph_x=shard_slice(engine._stacked_corpus(), 0))
+    program = engine.compile(closed.predicates[:n_queries])
+    xq = closed.xq[:n_queries]
+    reqs = [SearchRequest(xq=xq[s:s + ENGINE_BATCH],
+                          predicates=program.take(slice(s, s + ENGINE_BATCH)),
+                          k=ENGINE_K)
+            for s in range(0, n_queries, ENGINE_BATCH)]
+
+    def run(fn):
+        out, t0 = [], time.perf_counter()
+        for r in reqs:
+            out.append(fn(r))
+        sync(dev)
+        return out, time.perf_counter() - t0
+
+    def same(a, b, what):
+        for i, (ra, rb) in enumerate(zip(a, b)):
+            if not (torch.equal(ra.ids, rb.ids)
+                    and torch.equal(ra.dists, rb.dists)):
+                raise AssertionError(f"{what}: batch {i} differs")
+
+    engine.search_batch(reqs[0])            # warm-up
+    sync(dev)
+    counters = all_launchers()
+    for fn in counters:
+        fn.launches = 0
+    spmd, spmd_s = run(engine.search_batch)
+    launches = {fn.__name__[:-len("_cuda")]: fn.launches for fn in counters}
+    traces = engine.spmd_traces()
+    again, again_s = run(engine.search_batch)
+    if engine.spmd_traces() != traces:
+        raise AssertionError(f"SPMD variants grew on a repeat: {traces} -> "
+                             f"{engine.spmd_traces()}")
+    host, host_s = run(engine.search_batch_host)
+    same(spmd, again, "SPMD repeat")
+    same(spmd, host, "SPMD vs host loop")
+    res = SearchResult.concatenate(spmd)
+    routes = check_served(res, corpus_masks(engine, program),
+                          "SPMD engine")
+    cpu_copy_parity(engine, closed, program,
+                    np.nonzero(res.routes == "graph")[0][:MESH_PARITY],
+                    "engine spmd")
+    if profile:
+        profile_call(lambda: engine.search_batch(reqs[1]), path="engine spmd")
+        profile_call(lambda: engine.search_batch_host(reqs[1]),
+                     path="engine host loop")
+    engine.fail_shard(0)
+    down = engine.search_batch(reqs[0])
+    if not (bool((down.ids == -1).all()) and bool(torch.isinf(
+            down.dists).all()) and bool(down.degraded.all())):
+        raise AssertionError("every shard down: not the -1 / inf sentinel")
+    t0 = time.perf_counter()
+    engine.rebuild_shard(0)
+    sync(dev)
+    rebuild_s = time.perf_counter() - t0
+    rebuilt, _ = run(engine.search_batch)
+    same(spmd, rebuilt, "rebuilt shard")
+    log("mesh", path="engine spmd", n=ds.n, d=ds.x.shape[1],
+        shards=1, mesh=engine.spmd_mesh_shape(),
+        build_s=f"{build_s:.3f}", rebuild_s=f"{rebuild_s:.3f}",
+        peak_memory=(torch.cuda.max_memory_allocated() - mem0 if cuda
+                     else "not_measured"),
+        queries=n_queries, spmd_qps=f"{n_queries / spmd_s:.2f}",
+        spmd_repeat_qps=f"{n_queries / again_s:.2f}",
+        host_qps=f"{n_queries / host_s:.2f}", routes=routes,
+        spmd_traces=traces, bit_identical_to_host=True,
+        fail_all_down_sentinel=True, rebuilt_equal=True,
+        launches={k_: v for k_, v in launches.items() if v})
+    return launches
+
+
 def all_launchers() -> list:
     """The launch-counted wrapper of every kernel of the port."""
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda
@@ -2466,9 +2800,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one request per route, one "
-                         "retrieval request, one PNA request and one "
-                         "engine batch with torch.profiler and print where "
-                         "the device time goes")
+                         "retrieval request, one PNA request, one engine "
+                         "batch and one SPMD and one host-loop batch of the "
+                         "mesh phase's engine with torch.profiler and print "
+                         "where the device time goes")
     ap.add_argument("--baseline", metavar="DIR",
                     help="a directory holding an earlier gather_distance.cu, "
                          "neighbor_expand.cu, filtered_topk.cu and "
@@ -2478,6 +2813,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
+    import torch.distributed as dist
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2507,6 +2843,9 @@ def main(argv=None) -> int:
     for line in loader.BUILD_INFO.get("log", "").splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("[ptxas] " + line.strip(), file=sys.stderr)
+    # a one-rank NCCL group: the mesh paths (retrieve and mesh phases)
+    # gather through it
+    mesh_group(dev)
 
     # ---- build ----
     t0 = time.perf_counter()
@@ -2741,9 +3080,37 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name} was not launched in the engine's "
                                  "closed loop")
         by_name[name]["engine_launches"] = engine_launches[name]
-    del engine, ds_e
+    del engine
     torch.cuda.empty_cache()
     log("engine", seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # ---- mesh: the SPMD engine, then the acorn arch at full width ----
+    t0 = time.perf_counter()
+    mesh_launches = mesh_engine(dev, ds_e, closed, profile=args.profile,
+                                kernels=(flush, base, by_name))
+    for name in ("gather_distance", "neighbor_expand"):
+        if mesh_launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched in the SPMD "
+                                 "engine's run")
+        by_name[name]["mesh_launches"] = mesh_launches[name]
+    # serve_25m holds 64.4 GB of inputs: free what the earlier phases hold
+    del ds_e, closed, kinds, index, g, ds, wl, masks_all, masks, pm, q
+    del ids, row0, row1, xq_all, ids_all, gt, results, requests
+    torch.cuda.empty_cache()
+    acorn_ms = acorn_serve(dev, "serve_1m", ((False, MESH_CHUNK),
+                                             (True, MESH_CHUNK),
+                                             (True, MESH_WIDE_CHUNK)), flush)
+    torch.cuda.empty_cache()
+    log("mesh", arch="acorn", shape="serve_25m", optimized=False,
+        skipped="its (512, 3*2^23) fp32 score matrix alone is 51.5 GB, "
+        "beside 64.4 GB of inputs")
+    acorn_ms.update({("25m",) + k_: v for k_, v in acorn_serve(
+        dev, "serve_25m", ((True, MESH_CHUNK), (True, MESH_WIDE_CHUNK)),
+        flush).items()})
+    torch.cuda.empty_cache()
+    log("mesh", acorn_ms={str(k_): v for k_, v in acorn_ms.items()},
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    dist.destroy_process_group()
 
     log("total", seconds=f"{time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": records}))

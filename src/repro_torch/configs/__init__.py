@@ -6,6 +6,7 @@ from __future__ import annotations
 import importlib
 
 _MODULES = {
+    "acorn": "repro_torch.configs.acorn",
     "pna": "repro_torch.configs.pna",
     "two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
 }
@@ -17,6 +18,5 @@ def get_arch(name: str):
     if name not in _MODULES:
         raise NotImplementedError(
             f"arch {name!r} is not ported (ported: {ARCH_IDS}); the other "
-            "arches wait in ROADMAP.md queue 1 (item 5 for models/, item 3 "
-            "for the mesh-only 'acorn')")
+            "arches wait in ROADMAP.md queue 1 (item 5 for models/)")
     return importlib.import_module(_MODULES[name]).ARCH

@@ -3,11 +3,11 @@ interaction=dot, sampled-softmax retrieval [RecSys'19 (YouTube)].
 
 ``retrieval_cand`` scores one query embedding against a 2^20-item corpus
 under a structured predicate (a (B, n) mask): ACORN's hybrid-search
-problem.  Ported here on one device: the ``serve`` step and the
-``retrieval`` step ``retrieve_local`` (user tower + ``filtered_topk``).
-The reference's ``filtered_retrieval_step`` over a device mesh waits for
-``distributed/`` (ROADMAP queue 1 item 3), and the ``train`` step for the
-losses and the optimizer (queue 1 item 5).
+problem.  Ported: the ``serve`` step, the one-device ``retrieval`` step
+``retrieve_local`` (user tower + ``filtered_topk``) and the mesh-explicit
+:func:`filtered_retrieval_step` (candidates split over every mesh axis,
+per-shard top-k, k-row all-gather, merge).  The ``train`` step waits for
+the losses and the optimizer (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.collectives import Mesh, all_gather_cat, top_k
 from repro_torch.kernels.filtered_topk import filtered_topk
 from repro_torch.models.recsys import (TwoTower, TwoTowerConfig,
                                        init_two_tower)
@@ -28,6 +29,45 @@ REDUCED = TwoTowerConfig(n_users=1024, n_items=512, n_user_feats=2,
                          embed_dim=16, tower_dims=(32, 16))
 
 TOPK = 100
+
+
+def filtered_retrieval_step(mesh: Mesh, cfg: TwoTowerConfig, k: int = TOPK):
+    """``step(model, batch, cand_l (N_l, E'), mask_l (B, N_l), base=0)`` ->
+    (ids, scores) (B, k), whole and identical on every rank of ``mesh``.
+
+    Candidates split over every mesh axis: each rank passes its row block
+    of the candidate embeddings (N / mesh size rows; a rank outside the
+    mesh passes any block of that size), the matching mask columns and the
+    block's first row ``base``; it scores masked dot products (``torch.matmul``,
+    fp32), keeps a local top ``min(k, N_l)``, and the k-candidates-per-shard
+    merge is an all-gather of k rows along each mesh axis + a local
+    top-k.  Selections are :func:`repro_torch.distributed.collectives.
+    top_k` (lower index first on equal scores, as ``lax.top_k``).  As in
+    the reference, a masked candidate keeps its id with a ``-inf`` score
+    when fewer than k pass.  The reference's mesh step is plain jnp, not the
+    Pallas kernel; so is this one (no ``filtered_topk``)."""
+    axes = tuple(mesh.axis_names)
+
+    def step(model: TwoTower, batch, cand_l, mask_l, base: int = 0):
+        u = model.user_embed(batch)                        # (B, E')
+        b = u.shape[0]
+        outs = None
+        if mesh.coordinate is not None:
+            s = u @ cand_l.T                               # (B, N_local)
+            s = torch.where(mask_l, s, torch.full_like(s, float("-inf")))
+            kl = min(k, s.shape[1])                        # small meshes
+            top_s, top_i = top_k(s, kl)
+            ids = (top_i + base).to(torch.int32)
+            for ax in axes:
+                top_s = all_gather_cat(top_s, mesh, ax, dim=1)
+                ids = all_gather_cat(ids, mesh, ax, dim=1)
+            s2, pos = top_k(top_s, min(k, top_s.shape[1]))
+            outs = (torch.gather(ids, 1, pos), s2)
+        kk = min(k, mesh.size * min(k, cand_l.shape[0]))
+        return mesh.share(outs, [((b, kk), torch.int32),
+                                 ((b, kk), torch.float32)], u.device)
+
+    return step
 
 
 class TwoTowerArch(RecsysArchBase):
@@ -54,16 +94,14 @@ class TwoTowerArch(RecsysArchBase):
     def step_fn(self, cfg, shape: str, mesh=None):
         """``serve``: (model, batch) -> (B,) user-item scores.
         ``retrieval``: (model, batch, cand_embs (n, E'), mask (B, n)) ->
-        (ids (B, k), scores (B, k)), k = min(TOPK, n), +u.v scores."""
+        (ids (B, k), scores (B, k)), k = min(TOPK, n), +u.v scores; with a
+        ``mesh``, :func:`filtered_retrieval_step` (each rank passes its
+        candidate block, mask columns and base row)."""
         kind = RECSYS_SHAPES[shape]["kind"]
         if kind == "train":
             raise NotImplementedError(
                 "the two-tower train step is not ported yet (two_tower_loss "
                 "and AdamW: ROADMAP.md queue 1 item 5)")
-        if mesh is not None:
-            raise NotImplementedError(
-                "two-tower steps over a device mesh are not ported yet "
-                "(filtered_retrieval_step: ROADMAP.md queue 1 item 3)")
         if kind == "serve":
             # online scoring: user embedding . embedding of the request item
             def serve(model: TwoTower, batch):
@@ -71,6 +109,8 @@ class TwoTowerArch(RecsysArchBase):
                 v = model.item_embed(batch["item_id"])
                 return (u * v).sum(dim=-1)
             return serve
+        if mesh is not None:
+            return filtered_retrieval_step(mesh, cfg)
 
         def retrieve_local(model: TwoTower, batch, cand_embs, mask):
             u = model.user_embed(batch)

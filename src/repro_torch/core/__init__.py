@@ -16,7 +16,7 @@ from .build import (acorn_compress, build_acorn_1, build_acorn_gamma,
                     build_bulk, build_hnsw, knn_among, reverse_slack,
                     rng_prune, with_reverse_slack)
 from .search import (SearchStats, ann_search, dedup_mask, first_m_true,
-                     get_neighbors, hybrid_search)
+                     get_neighbors, hybrid_search, hybrid_search_sharded)
 from .batched import (DEFAULT_BUCKETS, VariantCache, bucket_for,
                       coalesce_take, mesh_buckets, pad_rows, plan_chunks,
                       search_batch)
@@ -41,7 +41,7 @@ __all__ = [
     "build_hnsw", "knn_among", "reverse_slack", "rng_prune",
     "with_reverse_slack",
     "SearchStats", "ann_search", "dedup_mask", "first_m_true",
-    "get_neighbors", "hybrid_search",
+    "get_neighbors", "hybrid_search", "hybrid_search_sharded",
     "DEFAULT_BUCKETS", "VariantCache", "bucket_for", "coalesce_take",
     "mesh_buckets", "pad_rows", "plan_chunks", "search_batch",
     "prefilter_search", "postfilter_search", "OraclePartitionIndex",

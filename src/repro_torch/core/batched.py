@@ -121,7 +121,14 @@ class VariantCache:
         return sum(self.trace_counts.values())
 
 
-def _build_variant(statics: dict) -> Callable:
+def _build_variant(statics: dict, has_mask: bool) -> Callable:
+    spec: ExecutionSpec = statics["spec"]
+    if spec.data_parallel > 1:
+        # queries + masks split along the 'data' mesh of ranks, graph and
+        # vectors replicated (distributed/query_parallel.py)
+        from repro_torch.distributed.query_parallel import sharded_search_fn
+        return sharded_search_fn(spec.data_parallel, has_mask, statics)
+
     def fn(graph, x, xq, masks):
         return _search_impl(graph, x, xq, masks, **statics)
     return fn
@@ -163,6 +170,18 @@ def search_batch(
     retired knob kwargs raise ``TypeError``.  ``cache=None`` uses a fresh
     cache for this call.
 
+    ``spec.data_parallel`` > 1 splits each bucket's queries over that many
+    ranks of the default process group (``None``/``0`` = all of them;
+    clamped to the group's size) through
+    ``repro_torch.distributed.query_parallel``: every rank calls this with
+    the whole batch and gets the whole result; buckets round up to
+    mesh-size multiples and results stay bit-identical to the
+    single-device path.  ``spec.corpus_parallel`` must resolve to 1
+    (``None``/``0`` mean 1): this entry point searches ONE corpus shard;
+    a sharded corpus runs through ``repro_torch.distributed.
+    corpus_parallel.corpus_search_batch``.  The variant-cache key ends
+    with the resolved spec.
+
     Returns ids (B, k), dists (B, k), SearchStats with (B,) fields.
     """
     cache = VariantCache() if cache is None else cache
@@ -170,11 +189,23 @@ def search_batch(
         spec, "search_batch", use_kernel=use_kernel, interpret=interpret,
         expand_kernel=expand_kernel, data_parallel=data_parallel,
         corpus_parallel=corpus_parallel)
+    if spec.corpus_parallel not in (None, 0, 1):
+        raise ValueError(
+            f"corpus_parallel={spec.corpus_parallel}: search_batch searches "
+            "a single corpus shard; use repro_torch.distributed."
+            "corpus_parallel.corpus_search_batch (via ServingEngine) for a "
+            "sharded corpus")
     if pass_masks is None:
         # without a predicate mask the filter/compress/two_hop strategies
         # are undefined, so every variant runs the plain-HNSW substrate
         variant = "hnsw"
         compressed_level0 = False
+    dp = 1
+    if spec.data_parallel != 1:  # None/0 -> every rank; N -> clamp
+        from repro_torch.distributed.query_parallel import (
+            resolve_data_parallel)
+        dp = resolve_data_parallel(spec.data_parallel)
+    spec = spec.resolve(data_parallel=dp, corpus_parallel=1)
     total = xq.shape[0]
     dev = xq.device
     if total == 0:
@@ -187,7 +218,7 @@ def search_batch(
                    max_expansions=max_expansions, spec=spec)
     outs = []
     start = 0
-    for take, bucket in plan_chunks(total, buckets):
+    for take, bucket in plan_chunks(total, buckets, multiple_of=dp):
         q = xq[start:start + take]
         msk = None if pass_masks is None else pass_masks[start:start + take]
         if take < bucket:
@@ -196,7 +227,8 @@ def search_batch(
                 msk = pad_rows(msk, bucket - take)
         key = (bucket, k, ef, variant, m, m_beta, metric, compressed_level0,
                max_expansions, msk is not None, spec)
-        fn = cache.get(key, lambda: _build_variant(statics))
+        fn = cache.get(key, lambda: _build_variant(
+            statics, has_mask=msk is not None))
         ids, d, stats = fn(graph, x, q, msk)
         outs.append((ids[:take], d[:take], stats.dist_comps[:take],
                      stats.hops[:take]))

@@ -5,7 +5,9 @@ selectivity sketch, and implements the paper's routing rule: queries whose
 estimated selectivity falls below s_min = 1/γ are answered by pre-filtered
 brute force (exact); all others traverse the predicate subgraph.  Both
 routes run through the same batch buckets.  Everything lives on one
-device; kernel routing follows it.
+device; kernel routing follows it.  ``AcornConfig.data_parallel`` > 1
+splits the graph route's queries over ranks of the default process group
+(``repro_torch.distributed.query_parallel``).
 """
 from __future__ import annotations
 
@@ -41,9 +43,16 @@ class AcornConfig:
     compress: bool = True
     max_expansions: int = 512
     buckets: Tuple[int, ...] = DEFAULT_BUCKETS  # batch buckets
-    # mesh sizes; this slice runs one device (1 only)
-    data_parallel: int = 1
-    corpus_parallel: int = 1
+    # query-data-parallel mesh devices for the graph route: 1 = single
+    # device, None/0 = all ranks of the default process group, N = min(N,
+    # that count)
+    data_parallel: Optional[int] = 1
+    # corpus-mesh axis size for corpus-sharded serving
+    # (repro_torch.distributed.corpus_parallel via ServingEngine): None/0 =
+    # auto (one device per corpus shard when there are enough); an
+    # explicit value must equal the engine's shard count.  A single
+    # HybridIndex is always one corpus shard.
+    corpus_parallel: Optional[int] = None
 
     @property
     def s_min(self) -> float:

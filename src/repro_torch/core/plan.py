@@ -12,13 +12,14 @@
    as ``aux`` rows.
 2. **ExecutionSpec**: the execution knobs as one frozen value.  In the
    port kernel routing follows the tensors' device, so only the mesh knobs
-   remain, and this slice runs one device.
+   remain: the ``(data, corpus)`` mesh shape over the ranks of the
+   default process group (``repro_torch.distributed``).
 3. **SearchRequest / SearchResult**: one batch of work and its typed
    result, for :meth:`repro_torch.core.index.HybridIndex.search`.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -37,33 +38,41 @@ Tensor = torch.Tensor
 # ExecutionSpec
 # ---------------------------------------------------------------------------
 
-_WAITS = ("waits for the port of distributed/ (ROADMAP.md, queue 1 item "
-          "3); the port runs one device")
-
 
 @dataclass(frozen=True)
 class ExecutionSpec:
     """How a search executes, independent of what it searches.
 
-    ``data_parallel``   — query-shard the batch over this many devices;
-    ``corpus_parallel`` — corpus-mesh axis size for sharded serving.
+    ``data_parallel``   — query-shard the batch over this many mesh
+                          devices, the ranks of the default process group
+                          (``None``/``0`` = all, 1 = off);
+    ``corpus_parallel`` — corpus-mesh axis size for sharded serving
+                          (``None``/``0`` = auto; a single index pins 1).
 
     The reference's ``use_kernel``/``interpret``/``expand_kernel`` have no
     counterpart: a CUDA tensor runs the kernels, a CPU tensor their plain
-    versions.  Any mesh size other than 1 raises ``NotImplementedError``.
-    Frozen + hashable: the spec is the last component of every
-    variant-cache key.
+    versions.  Frozen + hashable: a fully *resolved* spec
+    (:meth:`resolve`) is the last component of every variant-cache key.
     """
 
-    data_parallel: int = 1
-    corpus_parallel: int = 1
+    data_parallel: Optional[int] = 1
+    corpus_parallel: Optional[int] = None
 
-    def __post_init__(self):
-        for name in ("data_parallel", "corpus_parallel"):
-            v = getattr(self, name)
-            if v != 1:
-                raise NotImplementedError(f"ExecutionSpec({name}={v!r}) "
-                                          + _WAITS)
+    def resolve(self, data_parallel: Optional[int] = None,
+                corpus_parallel: Optional[int] = None) -> "ExecutionSpec":
+        """Pin the mesh fields to the shape the caller resolved (device
+        clamping and mesh fitting are caller policy — see
+        ``query_parallel.resolve_data_parallel`` and
+        ``corpus_parallel.resolve_corpus_mesh_shape``)."""
+        dp = self.data_parallel if data_parallel is None else data_parallel
+        cp = (self.corpus_parallel if corpus_parallel is None
+              else corpus_parallel)
+        return ExecutionSpec(data_parallel=dp, corpus_parallel=cp)
+
+    def overlay(self, **overrides) -> "ExecutionSpec":
+        """A copy with any non-``None`` overrides applied."""
+        kept = {k: v for k, v in overrides.items() if v is not None}
+        return replace(self, **kept) if kept else self
 
 
 _KNOB_NAMES = ("use_kernel", "interpret", "expand_kernel", "data_parallel",
@@ -566,14 +575,15 @@ def compile_predicates(preds: Sequence[Predicate],
 
 
 def evaluate_program(prog: PredicateProgram, ints: Tensor, bitsets: Tensor,
-                     aux: Tensor, n_valid: Optional[int] = None) -> Tensor:
+                     aux: Tensor,
+                     n_valid: Optional[Union[int, Tensor]] = None) -> Tensor:
     """Run the whole program batch in one pass: (B, n) bool masks.
 
     ``ints`` (C_int, n) int32 and ``bitsets`` (C_bit, n, W) int32 — a
     :class:`PackedColumns`; ``aux`` (A, n) bool regex-leaf bitmaps.
-    ``n_valid``, when given, forces rows >= n_valid to False (the guard for
-    padded corpus shards, whose zero-filled rows could otherwise satisfy a
-    predicate the real shard never stored).
+    ``n_valid`` (an int or a 0-d tensor), when given, forces rows >=
+    n_valid to False (the guard for padded corpus shards, whose zero-filled
+    rows could otherwise satisfy a predicate the real shard never stored).
 
     The stack is a (B, S, n) bool tensor; each of the L instruction steps
     computes every leaf value once per query row and writes the stack at

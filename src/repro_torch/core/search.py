@@ -336,6 +336,72 @@ def hybrid_search(
                         metric, compressed_level0, max_expansions, spec)
 
 
+def hybrid_search_sharded(
+    graph: LayeredGraph,
+    x: Tensor,
+    xq: Tensor,
+    pass_mask: Optional[Tensor],
+    data_parallel: Optional[int] = None,
+    k: int = 10,
+    ef: int = 64,
+    variant: str = "acorn-gamma",
+    m: int = 16,
+    m_beta: int = 32,
+    metric: str = "l2",
+    compressed_level0: bool = True,
+    max_expansions: int = 512,
+    spec: Optional[ExecutionSpec] = None,
+    use_kernel: Optional[bool] = None,
+    interpret: Optional[bool] = None,
+    expand_kernel: Optional[bool] = None,
+):
+    """Mesh-aware :func:`hybrid_search`: queries split over ranks.
+
+    Splits ``xq``/``pass_mask`` over a 1-D ``data`` mesh of ranks of the
+    default process group, graph and vectors replicated, via
+    ``repro_torch.distributed.query_parallel``; every rank passes the
+    whole batch and gets the whole result.  The mesh size comes from
+    ``spec.data_parallel`` (``None``/``0`` -> every rank; clamped to the
+    group's size).  With no ``spec`` at all this entry point's default is
+    every rank, as in the reference; an explicit ``spec=ExecutionSpec()``
+    means ``data_parallel=1``.  The positional ``data_parallel`` and the
+    kernel knob kwargs raise ``TypeError``.  ``xq`` is padded up to a mesh
+    multiple (padding lanes discarded); results are bit-identical to the
+    single-device path.  ``pass_mask=None`` runs the unfiltered plain-HNSW
+    substrate, as in :func:`repro_torch.core.batched.search_batch`.
+    """
+    from repro_torch.distributed.query_parallel import (pad_to_multiple,
+                                                        resolve_data_parallel,
+                                                        sharded_search_fn)
+    spec_given = spec is not None
+    spec = resolve_execution_spec(
+        spec, "hybrid_search_sharded", use_kernel=use_kernel,
+        interpret=interpret, expand_kernel=expand_kernel,
+        data_parallel=data_parallel)
+    if not spec_given:
+        spec = spec.overlay(data_parallel=0)
+    if pass_mask is None:
+        variant, compressed_level0 = "hnsw", False
+    dp = resolve_data_parallel(spec.data_parallel)
+    local_spec = spec.resolve(data_parallel=dp, corpus_parallel=1)
+    statics = dict(k=k, ef=ef, variant=variant, m=m, m_beta=m_beta,
+                   metric=metric, compressed_level0=compressed_level0,
+                   max_expansions=max_expansions, spec=local_spec)
+    b = xq.shape[0]
+    if dp <= 1 or b == 0:
+        return _search_impl(graph, x, xq, pass_mask, **statics)
+    fn = sharded_search_fn(dp, pass_mask is not None, statics)
+    pb = pad_to_multiple(b, dp)
+    if pb != b:
+        from .batched import pad_rows
+        xq = pad_rows(xq, pb - b)
+        if pass_mask is not None:
+            pass_mask = pad_rows(pass_mask, pb - b)
+    ids, d, st = fn(graph, x, xq, pass_mask)
+    return ids[:b], d[:b], SearchStats(dist_comps=st.dist_comps[:b],
+                                       hops=st.hops[:b])
+
+
 def ann_search(
     graph: LayeredGraph,
     x: Tensor,

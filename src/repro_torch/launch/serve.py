@@ -13,15 +13,26 @@ seeded Poisson arrival process.
 
 Everything runs on ``--device`` (default ``cuda``; it raises without a
 card, so pass ``--device cpu`` for the plain PyTorch path).
+
+Started by ``torchrun`` (``WORLD_SIZE`` in the environment), every rank
+joins the default process group (``nccl`` for ``--device cuda``, bound to
+``cuda:LOCAL_RANK``; ``gloo`` for ``--device cpu``) and the engine takes
+its SPMD ``(data, corpus)`` mesh path whenever the ranks can hold one
+shard each (the reference's auto rule); only rank 0 prints:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve --shards 4
 """
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
 import time
 
 import numpy as np
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import AcornConfig, SearchRequest, recall_at_k
 from repro_torch.data import make_hcps_dataset, make_lcps_dataset, make_workload
@@ -29,9 +40,35 @@ from repro_torch.serve import (EngineConfig, RuntimeConfig, ServingEngine,
                                ServingRuntime)
 
 
+# the longest a collective may wait before it fails instead of hanging
+GROUP_TIMEOUT = datetime.timedelta(seconds=60)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def say(*args) -> None:
+    """``print`` on rank 0 only: rank 0 speaks for the group."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(*args)
+
+
+def join_group(device: str) -> str:
+    """Under ``torchrun``: join the default process group (``nccl`` on
+    cards, bound to ``cuda:LOCAL_RANK``; ``gloo`` on the CPU) unless one
+    exists, and return this rank's device; else ``device`` unchanged."""
+    if "WORLD_SIZE" not in os.environ:
+        return device
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                timeout=GROUP_TIMEOUT)
+    return str(dev)
 
 
 def build_engine(args, ds):
@@ -44,11 +81,13 @@ def build_engine(args, ds):
                      duplicate_dispatch=args.fail_shard is not None),
         device=args.device)
     _sync(engine.device)
-    print(f"built {args.shards} shards over n={args.n} in "
-          f"{time.perf_counter() - t0:.1f}s")
+    shape = engine.spmd_mesh_shape()
+    say(f"built {args.shards} shards over n={args.n} in "
+          f"{time.perf_counter() - t0:.1f}s; serving path: "
+          + ("host loop" if shape is None else f"spmd mesh {shape}"))
     if args.fail_shard is not None:
         engine.fail_shard(args.fail_shard)
-        print(f"shard {args.fail_shard} marked failed "
+        say(f"shard {args.fail_shard} marked failed "
               f"(duplicate dispatch active)")
     return engine
 
@@ -58,10 +97,10 @@ def run_closed(args, engine, ds, wl):
     res = engine.serve(wl.xq, wl.predicates)
     _sync(engine.device)
     dt = time.perf_counter() - t0
-    print(f"served {args.queries} hybrid queries in {dt:.2f}s "
+    say(f"served {args.queries} hybrid queries in {dt:.2f}s "
           f"({args.queries / dt:.1f} QPS) | recall@10 = "
           f"{recall_at_k(res.ids, wl.gt(ds)):.3f}")
-    print("stats:", engine.stats)
+    say("stats:", engine.stats)
 
 
 def run_open(args, engine, ds, wl):
@@ -103,10 +142,10 @@ def run_open(args, engine, ds, wl):
     sel = torch.as_tensor(np.nonzero(served)[0])
     rec = (recall_at_k(ids[sel], wl.gt(ds).cpu()[sel])
            if served.any() else float("nan"))
-    print(f"open loop: {args.queries} queries at {args.rate} req/s in "
+    say(f"open loop: {args.queries} queries at {args.rate} req/s in "
           f"{dt:.2f}s | sustained {st.qps:.1f} QPS | recall@10 (served) "
           f"= {rec:.3f}")
-    print(f"latency p50/p99 = {st.latency_p50 * 1e3:.1f}/"
+    say(f"latency p50/p99 = {st.latency_p50 * 1e3:.1f}/"
           f"{st.latency_p99 * 1e3:.1f} ms | shed {st.shed}/"
           f"{args.queries} | dispatches {st.dispatches} | "
           f"batch sizes {dict(sorted(st.batch_hist.items()))}")
@@ -139,6 +178,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device of the corpus, shards and queries")
     args = ap.parse_args(argv)
+    args.device = join_group(args.device)
 
     if args.workload == "equals":
         ds = make_lcps_dataset(n=args.n, d=args.d, seed=0,

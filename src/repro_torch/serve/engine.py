@@ -9,14 +9,29 @@ Operational wrapper around HybridIndex for production serving:
   * compiled predicate programs — each batch's predicate trees compile
     ONCE (``repro_torch.core.plan.compile_predicates``) into a columnar
     program shared by every shard;
-  * corpus sharding through the **host loop** (:meth:`search_batch_host`):
-    a Python walk over the shards, each an ACORN index on the engine's
-    device, with local ids offset to global ids and the (distance,
-    global id) merge (``repro_torch.distributed.merge_topk``) run on the
-    device.  The reference's SPMD path (one program on a ``(data,
-    corpus)`` mesh) waits for the port of ``distributed/`` (``ROADMAP.md``
-    queue 1 item 3); the reference gives bit-identical results on both
-    paths and takes the host loop on one device, as the port always does;
+  * corpus sharding, two execution paths —
+
+      - **SPMD (default when the mesh fits):** the per-shard indexes are
+        stacked into a :class:`repro_torch.distributed.corpus_parallel.
+        ShardedCorpus` (graphs + vectors + packed attribute columns) and
+        every batch runs as ONE program on a ``(data, corpus)`` mesh of
+        ranks of the default process group: the rank at corpus coordinate
+        ``s`` searches shard ``s`` for its ``data`` slice of the queries,
+        with in-program predicate evaluation, the local→global id offset
+        and the all-gather (distance, global id) merge
+        (``repro_torch.distributed.collectives.gathered_topk_merge``);
+      - **host loop (:meth:`search_batch_host`):** a Python walk over the
+        shards, each an ACORN index on the engine's device, with the
+        merge (``repro_torch.distributed.merge_topk``) run on the device —
+        the parity oracle of the SPMD path, and the path taken when there
+        are fewer devices than corpus shards (the reference's rule,
+        availability first) or ``EngineConfig.host_fallback`` is set.
+
+    Both paths are bit-identical (``tests/test_torch_corpus_parallel.py``).
+    The engine's state is replicated on every rank: each rank holds every
+    shard, so routing, pre-filter answers, mirrors and rebuilds are the
+    host code on every rank, and the SPMD program reads only the rank's
+    own shard;
   * execution policy as ONE value — ``EngineConfig.spec``
     (:class:`repro_torch.core.plan.ExecutionSpec`); the retired per-knob
     ``EngineConfig`` fields raise ``TypeError`` with a migration hint;
@@ -25,7 +40,10 @@ Operational wrapper around HybridIndex for production serving:
     stats + route summary + shed/degraded flags); ``ids, d =
     engine.serve(...)`` tuple unpacking works;
   * per-query cost-based routing (ACORN graph vs pre-filter, §5.2) —
-    inside each shard's HybridIndex;
+    inside each shard's HybridIndex on the host path; the SPMD path
+    computes the same per-(shard, query) decisions from each shard's
+    sketch and threads them into the program as a route mask + exact
+    pre-filter answers;
   * straggler mitigation — every shard query optionally runs on a mirror
     (duplicate dispatch); the merge collapses identical answers, so the
     protocol tolerates a slow or failed shard;
@@ -40,7 +58,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core import AcornConfig, HybridIndex, Predicate
+from repro_torch.core import AcornConfig, HybridIndex, Predicate, VariantCache
 from repro_torch.core.plan import (_KNOB_NAMES, ExecutionSpec,
                                    PredicateProgram, SearchRequest,
                                    SearchResult, TableSchema,
@@ -48,13 +66,14 @@ from repro_torch.core.plan import (_KNOB_NAMES, ExecutionSpec,
 from repro_torch.core.predicates import AttributeTable
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.collectives import merge_topk  # noqa: F401  (re-export)
+from repro_torch.distributed.corpus_parallel import (ShardedCorpus,
+                                                     corpus_search_batch,
+                                                     resolve_corpus_mesh_shape,
+                                                     stack_corpus,
+                                                     stack_regex_aux)
 
 Tensor = torch.Tensor
 Predicates = Union[Sequence[Predicate], PredicateProgram]
-
-_SPMD_WAITS = ("the SPMD corpus-mesh path waits for the port of "
-               "distributed/ (ROADMAP.md, queue 1 item 3); the port serves "
-               "through the host loop")
 
 
 @dataclasses.dataclass
@@ -74,6 +93,7 @@ class EngineConfig:
     expand_kernel: Optional[bool] = None
     data_parallel: Optional[int] = None
     corpus_parallel: Optional[int] = None
+    host_fallback: bool = False  # force the host-loop oracle path
 
     def __post_init__(self):
         passed = sorted(n for n in _KNOB_NAMES
@@ -94,8 +114,9 @@ class _Shard:
 
 class ServingEngine:
     """Shards a corpus row-wise, builds one ACORN index per shard on
-    ``device``, serves batched hybrid queries with a global top-k merge
-    through the host loop."""
+    ``device``, serves batched hybrid queries with a global top-k merge —
+    SPMD on a ``(data, corpus)`` mesh of ranks when it fits, host loop
+    otherwise."""
 
     def __init__(self, x, table: AttributeTable, acorn: AcornConfig,
                  cfg: EngineConfig, seed: int = 0,
@@ -131,6 +152,12 @@ class ServingEngine:
                                         "prefilter_routed": 0,
                                         "graph_routed": 0,
                                         "duplicated_dispatches": 0}
+        # SPMD state: stacked corpus (restacked after rebuild_shard),
+        # per-regex-leaf-set aux bitmaps, and the variant cache of the
+        # mesh program
+        self._corpus: Optional[ShardedCorpus] = None
+        self._aux_cache: Dict[tuple, Tensor] = {}
+        self.spmd_cache = VariantCache()
 
     # ------------------------------------------------------------------
     # execution-spec + mesh geometry resolution
@@ -144,11 +171,22 @@ class ServingEngine:
 
     def spmd_mesh_shape(self) -> Optional[Tuple[int, int]]:
         """The ``(data, corpus)`` mesh the SPMD path would run on, or
-        ``None`` when this engine serves through the host loop — always,
-        in the port: the spec's mesh sizes are 1 (larger ones raise where
-        the spec is made), and on one device the reference resolves that
-        to the host loop too."""
-        return None
+        ``None`` when this engine serves through the host loop."""
+        if self.cfg.host_fallback:
+            return None
+        spec = self.execution_spec()
+        return resolve_corpus_mesh_shape(
+            self.cfg.n_shards, data_parallel=spec.data_parallel,
+            corpus_parallel=spec.corpus_parallel)
+
+    def _stacked_corpus(self) -> ShardedCorpus:
+        if self._corpus is None:
+            self._corpus = stack_corpus(
+                [s.index.graph for s in self.shards],
+                [s.index.x for s in self.shards],
+                [s.base for s in self.shards],
+                tables=[s.index.table for s in self.shards])
+        return self._corpus
 
     def compile(self, predicates: Sequence[Predicate]) -> PredicateProgram:
         """Compile predicate trees once against the corpus schema; the
@@ -207,11 +245,102 @@ class ServingEngine:
             raise ValueError(f"{b} queries but {prog.n_queries} predicates")
         return prog
 
+    def _regex_aux(self, program: PredicateProgram, n_max: int) -> Tensor:
+        """Stacked per-shard regex-leaf bitmaps, cached per leaf set —
+        steady-state streams reuse one device-resident block instead of
+        restacking (S, A, n_max) every batch."""
+        aux = self._aux_cache.get(program.regex_leaves)
+        if aux is None:
+            aux = stack_regex_aux([s.index.table for s in self.shards],
+                                  n_max, program.regex_leaves)
+            if len(self._aux_cache) >= 64:  # unbounded predicate streams
+                self._aux_cache.pop(next(iter(self._aux_cache)))
+            self._aux_cache[program.regex_leaves] = aux
+        return aux
+
     def _search_batch_spmd(self, xq, preds: Predicates, dp: int, cp: int,
                            k: Optional[int] = None, ef: Optional[int] = None,
                            route: Optional[str] = None):
-        """The mesh-native path of the reference."""
-        raise NotImplementedError(_SPMD_WAITS)
+        """The mesh-native path: the compiled program + routing/fault
+        state thread into one SPMD program per bucket; predicate masks
+        are evaluated in-program on each corpus rank.  Every rank calls it
+        with the same batch."""
+        cfg, acorn = self.cfg, self.acorn
+        dev = self.device
+        xq = torch.as_tensor(xq).to(dev, dtype=torch.float32)
+        b = xq.shape[0]
+        k = cfg.k if k is None else k
+        ef = (ef or cfg.ef) or acorn.ef_search
+        n_shards = cfg.n_shards
+        corpus = self._stacked_corpus()
+        n_max = corpus.x.shape[1]
+
+        program = self._program(preds, b)
+        # host-only (regex) leaves: per-shard cached bitmaps, not masks
+        aux = self._regex_aux(program, n_max)
+
+        use_pre = np.zeros((n_shards, b), bool)
+        pre_ids = torch.full((n_shards, b, k), -1, dtype=torch.int32,
+                             device=dev)
+        pre_d = torch.full((n_shards, b, k), float("inf"),
+                           dtype=torch.float32, device=dev)
+        alive = np.zeros((n_shards,), bool)
+        mirrors = 2 if (cfg.duplicate_dispatch and n_shards > 1) else 1
+        for s, shard in enumerate(self.shards):
+            if not shard.healthy:
+                if mirrors > 1:
+                    # the mirror replica answers for the failed primary —
+                    # identical result, one duplicated dispatch on the wire
+                    self.stats["duplicated_dispatches"] += 1
+                else:
+                    continue  # shard contributes nothing this batch
+            alive[s] = True
+            # §5.2 cost-based routing, per (shard, query): each shard's own
+            # selectivity sketch decides, exactly like HybridIndex.search;
+            # a request route overrides the router, as on the host path
+            if route == "graph":
+                pre = np.zeros(b, bool)
+            elif route == "prefilter":
+                pre = np.ones(b, bool)
+            else:
+                s_est = shard.index.sketch.estimate_batch(program)
+                pre = np.asarray(s_est) < acorn.s_min
+            use_pre[s] = pre
+            if pre.any():
+                qidx = np.nonzero(pre)[0]
+                # the exact route needs real masks, but only for its own
+                # (shard, query) pairs
+                sub_masks = program.take(qidx).evaluate(shard.index.table)
+                ti = torch.as_tensor(qidx, device=dev)
+                ids_p, d_p = shard.index.prefilter(xq[ti], sub_masks, k)
+                pre_ids[s, ti] = ids_p
+                pre_d[s, ti] = d_p
+            self.stats["prefilter_routed"] += int(pre.sum())
+            self.stats["graph_routed"] += int(b - pre.sum())
+
+        self.stats["queries"] += b
+        self.stats["batches"] += 1
+        if not alive.any():
+            # every shard (and mirror) down: degrade to an empty result set
+            return sentinel_result(b, k, device=dev)
+
+        variant = acorn.variant
+        spec = self.execution_spec().resolve(data_parallel=dp,
+                                             corpus_parallel=cp)
+        ids, d, dcs, _ = corpus_search_batch(
+            corpus, xq, program, aux, pre_ids, pre_d,
+            torch.as_tensor(use_pre, device=dev),
+            torch.as_tensor(alive, device=dev),
+            k=k, ef=ef, variant=variant, m=acorn.M,
+            m_beta=acorn.resolved_m_beta(), metric=acorn.metric,
+            compressed_level0=acorn.compress and variant == "acorn-gamma",
+            max_expansions=acorn.max_expansions, spec=spec,
+            buckets=acorn.buckets, cache=self.spmd_cache)
+        return self._result(ids, d,
+                            dist_comps=dcs.cpu().numpy()[alive].sum(axis=0),
+                            pre_counts=use_pre[alive].sum(axis=0),
+                            n_alive=int(alive.sum()),
+                            degraded=not alive.all())
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -235,7 +364,8 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def search_batch_host(self, request: Union[SearchRequest, Tensor],
                           predicates: Optional[Predicates] = None):
-        """The host-side shard walk + merge."""
+        """The host-side shard walk + merge — the parity oracle for the
+        SPMD path and the path taken when the mesh doesn't fit."""
         xq, preds, k, ef, route = self._unpack(request, predicates)
         return self._search_batch_host(xq, preds, k=k, ef=ef, route=route)
 
@@ -247,11 +377,12 @@ class ServingEngine:
         b = xq.shape[0]
         k = cfg.k if k is None else k
         ef = ef if ef is not None else cfg.ef
-        # compile once, share across shards (one schema corpus-wide); each
-        # HybridIndex is exactly one corpus shard on one device
+        # compile once, share across shards (one schema corpus-wide); the
+        # per-shard spec unpins corpus_parallel: each HybridIndex is exactly
+        # one corpus shard, whatever mesh geometry the engine runs
         program = self._program(preds, b)
         shard_spec = dataclasses.replace(self.execution_spec(),
-                                         corpus_parallel=1)
+                                         corpus_parallel=None)
         all_ids, all_d = [], []
         pre_counts = np.zeros((b,), np.int64)
         dist_comps = np.zeros((b,), np.int64)
@@ -306,8 +437,9 @@ class ServingEngine:
         Accepts a :class:`SearchRequest` or the legacy ``(xq,
         predicates)`` pair; predicate trees compile once for the whole
         stream and the compiled program is row-sliced per chunk.  Chunks
-        are NOT padded here: each shard's ``HybridIndex.search`` pads to
-        its batch buckets."""
+        are NOT padded here: each path pads to its batch buckets
+        (``HybridIndex.search`` per shard on the host loop,
+        ``corpus_search_batch`` on the mesh)."""
         xq, preds, k, ef, route = self._unpack(request, predicates)
         b = self.cfg.batch_size
         n = xq.shape[0]
@@ -330,9 +462,9 @@ class ServingEngine:
                 for s, shard in enumerate(self.shards)}
 
     def spmd_traces(self) -> Dict[int, int]:
-        """SPMD-kernel traces by bucket: none, as the port has no SPMD
-        path yet."""
-        return {}
+        """SPMD variant-cache entries by bucket (the same steady-state
+        guard for the mesh path)."""
+        return self.spmd_cache.bucket_traces()
 
     # ------------------------------------------------------------------
     # fault tolerance
@@ -350,3 +482,6 @@ class ServingEngine:
             self._x[lo:lo + per], self._table.take(np.arange(lo, lo + per)),
             self.acorn, seed=seed + s, device=self.device)
         shard.healthy = True
+        # restack the SPMD corpus + aux bitmaps on next dispatch
+        self._corpus = None
+        self._aux_cache.clear()

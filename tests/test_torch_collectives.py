@@ -7,8 +7,9 @@ mirror idempotence, tie stability, degraded input, self idempotence), each
 merge also held to the reference's ``merge_topk`` on the same input.
 Tolerance: none — ids and distances bit-identical (distances compared as
 their bits, so -0.0 / +0.0 and the -inf / inf padding count), including
-ties at equal distance and rows with no valid candidate.  The mesh
-(``sharded_topk``) test waits for the port of ``distributed/``.
+ties at equal distance and rows with no valid candidate.  The mesh forms
+(``gathered_topk_merge``, ``sharded_topk``) run on ``gloo`` ranks in
+``test_torch_query_parallel.py``.
 """
 import jax.numpy as jnp
 import numpy as np

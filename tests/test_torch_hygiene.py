@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs import get_arch
 from repro_torch.configs.pna import ARCH as PNA_ARCH
 from repro_torch.configs.two_tower_retrieval import REDUCED
 from repro_torch.convert import (engine_from_arrays, graph_from_arrays,
@@ -106,6 +107,8 @@ ENTRY_POINTS = {
          "user_tower": {"w": [], "b": []}, "item_tower": {"w": [], "b": []}},
         REDUCED),
     "init_pna": lambda: init_pna(PNA_REDUCED),
+    "acorn.random_inputs": lambda: get_arch("acorn").random_inputs(
+        "serve_1m", reduced=True),
     "pna_params_from_arrays": lambda: pna_params_from_arrays(
         {"enc": np.zeros((8, 16)), "dec": np.zeros((16, 2)),
          "layers": []}, PNA_REDUCED),

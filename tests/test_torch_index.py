@@ -157,7 +157,25 @@ def test_retired_kwargs_raise(indexes, knob):
 
 
 @pytest.mark.parametrize("field", ["data_parallel", "corpus_parallel"])
-def test_mesh_sizes_wait_for_a_later_slice(field):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.ExecutionSpec(**{field: 2})
-    assert T.ExecutionSpec() == T.ExecutionSpec(1, 1)
+def test_mesh_sizes_wait_for_a_later_slice(indexes, field):
+    """Mesh sizes other than 1 are specs now, with the reference's
+    defaults; on one device an index searches with ``data_parallel`` 2
+    (clamped to the one device, the same ids) and refuses a multi-shard
+    ``corpus_parallel``, as the reference does."""
+    spec = T.ExecutionSpec(**{field: 2})
+    want = J.ExecutionSpec(**{field: 2})
+    assert (spec.data_parallel, spec.corpus_parallel) == (
+        want.data_parallel, want.corpus_parallel)
+    assert T.ExecutionSpec() == T.ExecutionSpec(1, None)
+    jds, tds, idx = indexes
+    _, tidx = idx["acorn-gamma"]
+    twl = make_workload(tds, kind="equals", n_queries=6, card=CARD)
+    req = T.SearchRequest(xq=twl.xq, predicates=twl.predicates, k=5)
+    if field == "data_parallel":
+        got = tidx.search(req, spec=spec)
+        base = tidx.search(req, spec=T.ExecutionSpec())
+        assert torch.equal(got.ids, base.ids)
+        assert torch.equal(got.dists, base.dists)
+    else:
+        with pytest.raises(ValueError, match="corpus_parallel"):
+            tidx.search(dataclasses.replace(req, route="graph"), spec=spec)

@@ -141,15 +141,28 @@ def test_merge_topk_stable_and_shard_order_invariant():
 
 
 def test_legacy_knobs_and_spmd_path_raise(setup):
+    """The retired knobs raise; a mesh spec is a config now.  On one
+    device a 2-shard engine serves through the host loop (the reference's
+    rule), and its SPMD program cannot get a 1 x 2 mesh without a process
+    group; a 1-shard engine asked for corpus_parallel=1 takes the SPMD
+    path on a 1 x 1 mesh and equals its host loop."""
     with pytest.raises(TypeError, match="spec=ExecutionSpec"):
         TS.EngineConfig(use_kernel=True)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        TS.EngineConfig(spec=T.ExecutionSpec(corpus_parallel=2))
+    cfg = TS.EngineConfig(spec=T.ExecutionSpec(corpus_parallel=2))
+    assert cfg.spec.corpus_parallel == 2 and not cfg.host_fallback
     eng = engine(setup, batch_size=8, n_shards=2)
     assert eng.spmd_mesh_shape() is None and eng.spmd_traces() == {}
     _, wl, _ = setup
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(ValueError, match="process group"):
         eng._search_batch_spmd(wl.xq[:2], wl.predicates[:2], 1, 2)
+    one = engine(setup, batch_size=8, n_shards=1,
+                 spec=T.ExecutionSpec(corpus_parallel=1))
+    assert one.spmd_mesh_shape() == (1, 1)
+    got = one.search_batch(wl.xq[:8], wl.predicates[:8])
+    host = one.search_batch_host(wl.xq[:8], wl.predicates[:8])
+    assert torch.equal(got.ids, host.ids)
+    assert torch.equal(got.dists, host.dists)
+    assert one.spmd_traces() == {16: 1}
 
 
 def test_schema_check_and_request_forms(setup):

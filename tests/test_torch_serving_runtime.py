@@ -9,8 +9,8 @@ histograms, admission keys and shed counts identical to the reference's,
 and the served ids the reference's.  Tolerance for ids: identical except
 at a near tie (float64 distances within 1e-5 relative), distances within
 rtol 1e-5 — ``torch_parity.assert_ids_match``.  The threaded tests run the
-port's worker against the real clock.  The 8-device SPMD test waits for
-the port of ``distributed/`` (``ROADMAP.md`` queue 1 item 3).
+port's worker against the real clock.  The 8-device SPMD twin runs on 8
+``gloo`` ranks in ``test_torch_corpus_faults.py``.
 """
 from types import SimpleNamespace
 

@@ -115,6 +115,39 @@ def test_retrieval_cand_matches_reference(models, p):
     assert (~fin).any() == (mask.sum() < 100)
 
 
+@pytest.mark.parametrize("p", [0.5, 0.2])   # 0.2: fewer than k = 100 pass
+def test_filtered_retrieval_step_matches_reference(models, p):
+    """The mesh-explicit step on a one-device mesh (``make_host_mesh()``
+    without a process group) against the reference's on
+    ``jax.make_mesh((1, 1))``: ids identical except at near ties, scores
+    within 1e-5; a masked candidate keeps its id beside a -inf score, as
+    in the reference."""
+    from repro.configs.two_tower_retrieval import (
+        filtered_retrieval_step as ref_step)
+    from repro_torch.launch.mesh import make_host_mesh
+    jcfg, jparams, cfg, model = models
+    batch, cand, mask = _retrieval_inputs(cfg, p)
+    want_ids, want_s = ref_step(jax.make_mesh((1, 1), ("data", "model")),
+                                jcfg)(jparams, {k: jnp.asarray(v)
+                                                for k, v in batch.items()},
+                                      jnp.asarray(cand), jnp.asarray(mask))
+    step = ARCH.step_fn(cfg, "retrieval_cand", mesh=make_host_mesh())
+    ids, s = step(model, {k: torch.from_numpy(v) for k, v in batch.items()},
+                  torch.from_numpy(cand), torch.from_numpy(mask), 0)
+    assert ids.shape == (1, 100) and ids.dtype == torch.int32
+    want_s = np.asarray(want_s)
+    fin = np.isfinite(want_s)
+    u = np.asarray(jrecsys.user_embed(jcfg, jparams, {
+        k: jnp.asarray(v) for k, v in batch.items()}))
+    keep = lambda a: np.where(fin, a, -1)  # noqa: E731  (padding aside)
+    assert_ids_match(keep(ids.numpy()), keep(np.asarray(want_ids)),
+                     s.numpy(), want_s, cand, u, metric="ip")
+    np.testing.assert_array_equal(ids.numpy()[~fin],
+                                  np.asarray(want_ids)[~fin])
+    np.testing.assert_allclose(s.numpy()[fin], want_s[fin], atol=1e-5)
+    assert (~fin).any() == (mask.sum() < 100)
+
+
 def test_serve_p99_matches_reference(models):
     jcfg, jparams, cfg, model = models
     jb, tb = _batch(cfg, 8, seed=3)
@@ -157,8 +190,6 @@ def test_unported_kinds_and_arches_raise():
         ARCH.step_fn(cfg, "train_batch")
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         ARCH.abstract_inputs(cfg, "train_batch", reduced=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        ARCH.step_fn(cfg, "retrieval_cand", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         get_arch("dien")
 

@@ -5,9 +5,17 @@ tests compare on the CPU, and a test that needs the card asks for the
 ``cuda_device`` fixture, which skips when no GPU is present (decided at
 run time, never at import time).
 """
+import datetime
+import os
+import pickle
+import time
+import traceback
+import uuid
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch.convert import (graph_from_arrays, pna_params_from_arrays,
                                  table_from_arrays)
@@ -38,6 +46,114 @@ def one_thread():
         yield
     finally:
         torch.set_num_threads(before)
+
+
+# the longest a spawned rank group may run; a stuck collective fails one
+# test instead of running the suite into its time limit
+RANK_TIMEOUT_S = 300
+# a collective that waits this long raises instead of hanging
+GROUP_TIMEOUT = datetime.timedelta(seconds=60)
+
+
+def _rank_main(fn, rank, world, store, out, env, args):
+    """One spawned rank: one torch thread, a gloo group over a FileStore
+    (or, with ``env``, the environment's own rendezvous left to ``fn``);
+    ``fn(rank, world, *args)``'s return value, or its traceback, pickled
+    to ``out``."""
+    torch.set_num_threads(1)
+    os.environ.update(env or {})
+    status = ("err", "did not finish")
+    try:
+        if not env:
+            dist.init_process_group(
+                "gloo", store=dist.FileStore(store, world), rank=rank,
+                world_size=world, timeout=GROUP_TIMEOUT)
+        status = ("ok", fn(rank, world, *args))
+    except BaseException:  # noqa: BLE001  (reported by the parent)
+        status = ("err", traceback.format_exc())
+    finally:
+        with open(out, "wb") as f:
+            pickle.dump(status, f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    os._exit(0 if status[0] == "ok" else 1)
+
+
+def run_ranks(fn, world, tmp_path, *args, torchrun_env=False,
+              timeout=RANK_TIMEOUT_S):
+    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes, the
+    ranks of a gloo group on the CPU, and return their results in rank
+    order.  ``fn`` must be a module-level function of a module the ranks
+    can import.  ``torchrun_env=True`` sets ``RANK``/``LOCAL_RANK``/
+    ``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT`` (a free localhost port)
+    as ``torchrun`` does and leaves joining the group to ``fn``.  Fails the
+    test on the first rank that raises (with its traceback) or, killing
+    every rank, when they outlive ``timeout`` seconds."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    tag = uuid.uuid4().hex[:8]
+    store = str(tmp_path / f"store-{tag}")
+    outs = [str(tmp_path / f"rank{r}-{tag}.pkl") for r in range(world)]
+    port = None
+    if torchrun_env:
+        import socket
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+    procs = []
+    for r in range(world):
+        env = (dict(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+               if torchrun_env else None)
+        p = ctx.Process(target=_rank_main,
+                        args=(fn, r, world, store, outs[r], env, args),
+                        daemon=True)
+        p.start()
+        procs.append(p)
+    deadline = time.monotonic() + timeout
+    failed = None
+    while any(p.is_alive() for p in procs):
+        failed = next((r for r, p in enumerate(procs)
+                       if p.exitcode not in (None, 0)), None)
+        if failed is not None or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    statuses = []
+    for r, path in enumerate(outs):
+        status = ("err", f"killed, or exited {procs[r].exitcode} without a "
+                  "result")
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                status = pickle.load(f)
+        statuses.append(status)
+    bad = [r for r, st in enumerate(statuses) if st[0] != "ok"]
+    if bad:
+        r = failed if failed is not None else bad[0]
+        hung = failed is None and time.monotonic() > deadline
+        pytest.fail(f"rank {r} of {world}"
+                    + (f" (the group outlived {timeout} s)" if hung else "")
+                    + f":\n{statuses[r][1]}")
+    return [st[1] for st in statuses]
+
+
+def assert_ranks_equal(results):
+    """Every rank returned the same arrays (nested dicts / lists)."""
+    def eq(a, b, where):
+        if isinstance(a, dict):
+            assert a.keys() == b.keys(), where
+            for key in a:
+                eq(a[key], b[key], f"{where}[{key!r}]")
+        elif isinstance(a, (list, tuple)):
+            assert len(a) == len(b), where
+            for i, (x, y) in enumerate(zip(a, b)):
+                eq(x, y, f"{where}[{i}]")
+        else:
+            assert np.array_equal(np.asarray(a), np.asarray(b)), where
+    for r, res in enumerate(results[1:], start=1):
+        eq(results[0], res, f"rank {r} vs rank 0")
 
 
 def port_graph(g, device="cpu"):
@@ -128,29 +244,35 @@ def assert_ids_match(ids_port, ids_ref, d_port, d_ref, x, xq, metric="l2",
     return ties
 
 
-def port_engine(engine, torch_acorn, torch_cfg, seed=0, device="cpu"):
-    """The port's ``ServingEngine`` over a reference engine's shards (its
-    graphs, vectors and tables, as numpy)."""
-    from repro_torch.convert import engine_from_arrays
+def graph_arrays(g):
+    """A reference ``LayeredGraph``'s fields as numpy: the keyword
+    arguments of ``convert.graph_from_arrays`` but ``device``."""
+    return dict(neighbors=[np.asarray(a) for a in g.neighbors],
+                pos=[np.asarray(a) for a in g.pos],
+                node_ids=[np.asarray(a) for a in g.node_ids],
+                entry_point=np.asarray(g.entry_point),
+                levels=np.asarray(g.levels))
 
-    def graph(g):
-        return dict(neighbors=[np.asarray(a) for a in g.neighbors],
-                    pos=[np.asarray(a) for a in g.pos],
-                    node_ids=[np.asarray(a) for a in g.node_ids],
-                    entry_point=np.asarray(g.entry_point),
-                    levels=np.asarray(g.levels))
 
+def engine_arrays(engine):
+    """A reference engine's shards (graphs, vectors, tables) as numpy, the
+    ``shards`` argument of ``convert.engine_from_arrays``."""
     def table(t):
         return dict(int_cols={k: np.asarray(v) for k, v in t.int_cols.items()},
                     bitset_cols={k: np.asarray(v)
                                  for k, v in t.bitset_cols.items()},
                     str_cols=dict(t.str_cols), n_keywords=dict(t.n_keywords))
 
-    return engine_from_arrays(
-        [dict(graph=graph(s.index.graph), x=np.asarray(s.index.x),
-              table=table(s.index.table))
-         for s in engine.shards], torch_acorn, torch_cfg, seed=seed,
-        device=device)
+    return [dict(graph=graph_arrays(s.index.graph), x=np.asarray(s.index.x),
+                 table=table(s.index.table)) for s in engine.shards]
+
+
+def port_engine(engine, torch_acorn, torch_cfg, seed=0, device="cpu"):
+    """The port's ``ServingEngine`` over a reference engine's shards (its
+    graphs, vectors and tables, as numpy)."""
+    from repro_torch.convert import engine_from_arrays
+    return engine_from_arrays(engine_arrays(engine), torch_acorn, torch_cfg,
+                              seed=seed, device=device)
 
 
 def random_tree(rng, depth=0):
