@@ -5,7 +5,10 @@
                             # with Figure 7's baselines and Table 4's
                             # incremental builds beside it,
                             # two-tower retrieval_cand (n = 1,048,576),
-                            # embedding_bag, PNA molecule inference, the
+                            # embedding_bag, the train steps (two-tower
+                            # train_batch at B = 65,536, PNA molecule,
+                            # checkpoints, the launcher), PNA molecule
+                            # inference, the
                             # sharded HCPS serving engine (n = 2^20) and
                             # the distributed paths on a one-rank NCCL
                             # mesh (acorn serve_1m and serve_25m, the
@@ -113,10 +116,32 @@ Phases, each printed on its own line:
            kernel against its plain version at ``BAG_EDGE_CASES`` and at
            the recsys shapes, ids (512, 4) (``serve_p99`` batch x
            ``n_user_feats``) and (65,536, 4) (``train_batch``), ~25 % -1
-           padding, sum and mean, within rtol / atol 1e-5; timed; then the
-           op at those shapes with the launch counters zeroed just before
-           and read just after, and its gradient at (65,536, 4) against a
-           CPU copy.
+           padding, sum and mean, within rtol / atol 1e-5; timed beside
+           one ``F.embedding_bag`` call of the same result (``bag_library``:
+           sum weighted by ``ids >= 0``, mean over the valid ids with
+           offsets); then the op at those shapes with the launch counters
+           zeroed just before and read just after, and its gradient at
+           (65,536, 4) against a CPU copy.
+  train    the training core on the same FULL model (``train_phases``):
+           two-tower ``train_batch`` at B = 65,536 (Zipf(1.1) items, logq
+           their log-probabilities; ``zipf_batch``): one warm-up step, 10
+           counted steps through the arch's step (p50 / max ms,
+           examples/s, peak memory, the losses, finite), 2 steps timed in
+           parts (forward+backward, ``adamw_update``); the first 4,096 rows
+           against a CPU copy of the rows they touch (loss within 1e-5,
+           every gradient within 4x the copy's own fp32 distance to its
+           float64 run or 1e-5 relative L2, one ``adamw_update`` from the
+           same gradients within rtol 1e-5, no gradient outside the
+           touched rows) and the blocked loss against the plain one on the
+           card.  PNA ``molecule`` (4 layers, d 75, 128 graphs of 30
+           nodes): step 1 against a CPU copy as above, then 20 counted
+           steps.  Neither path may launch any of the port's kernels
+           (``train_launches`` in the record).  A sync and an async
+           checkpoint of the molecule state restored onto the card,
+           bit-identical (the two-tower FULL state, 25.8 GB, is not
+           written); ``python -m repro_torch.launch.train`` for two-tower
+           at its reduced config, 20 steps, then resumed to 30: finite,
+           falling losses.
   pna      PNA (``get_arch("pna")``, ``molecule`` shape: 4 layers,
            d_in 16, d_hidden 75, 2 classes) with random weights from a
            seed: ``pna_aggregate`` against its plain version at
@@ -1526,11 +1551,34 @@ def embedding_bag_bound(ids, table, mode: str) -> tuple:
     return bound(byts, ops)
 
 
-def measure_embedding_bag(ids, table, mode: str, flush) -> dict:
-    """Kernel vs plain version on the card, then the kernel, the plain
-    version and (for sum) the library yardstick timed with a cold L2."""
+def bag_library(ids, table, mode: str) -> tuple:
+    """(one ``F.embedding_bag`` call computing ``embedding_bag_ref``'s
+    result, its description); its inputs are built here, outside the
+    call.  Sum weights each clamped id by ``ids >= 0``; mean takes the 1-D
+    form over the valid ids only (a bag's offset is the count of valid ids
+    before it; an empty bag gives zeros, as ``max(count, 1)`` does)."""
     import torch
     import torch.nn.functional as F
+    v = table.shape[0]
+    if mode == "sum":
+        safe, w = ids.clamp(0, v - 1).long(), (ids >= 0).float()
+        return (lambda: F.embedding_bag(safe, table, mode="sum",
+                                        per_sample_weights=w),
+                "F.embedding_bag(ids.clamp(0, V-1), table, mode='sum', "
+                "per_sample_weights=(ids >= 0).float()): 1 call")
+    valid = ids >= 0
+    flat = ids[valid].clamp(max=v - 1).long()
+    offsets = torch.zeros(ids.shape[0], dtype=torch.long, device=ids.device)
+    offsets[1:] = valid.sum(dim=1).cumsum(0)[:-1]
+    return (lambda: F.embedding_bag(flat, table, offsets, mode="mean"),
+            "F.embedding_bag(ids[ids >= 0].clamp(max=V-1), table, offsets "
+            "of the valid ids, mode='mean'): 1 call")
+
+
+def measure_embedding_bag(ids, table, mode: str, flush) -> dict:
+    """Kernel vs plain version on the card, then the kernel, the plain
+    version and the library yardstick (one ``F.embedding_bag`` call,
+    held to the plain version too) timed with a cold L2."""
     from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
                                                    embedding_bag_ref)
     b, l = ids.shape
@@ -1547,22 +1595,13 @@ def measure_embedding_bag(ids, table, mode: str, flush) -> dict:
                    flush),
         plain_ms=time_ms(lambda: embedding_bag_ref(ids, table, mode),
                          ITERS // 5, flush),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        library_calls="none for mean: F.embedding_bag's padding_idx drops "
-                      "every id of a real row, not the -1 slots")
-    if mode == "sum":
-        safe, w = ids.clamp(0, v - 1).long(), (ids >= 0).float()
-
-        def library():
-            return F.embedding_bag(safe, table, mode="sum",
-                                   per_sample_weights=w)
-        rec.update(
-            library_ms=time_ms(library, ITERS // 5, flush),
-            library_max_abs_err=assert_bag_close(library(), want,
-                                                 "F.embedding_bag"),
-            library_calls="F.embedding_bag(ids.clamp(0, V-1), table, "
-                          "mode='sum', per_sample_weights=(ids >= 0)"
-                          ".float()): 1 call")
+        bound_ms=bound_ms, bound_by=bound_by)
+    library, calls = bag_library(ids, table, mode)
+    rec.update(
+        library_ms=time_ms(library, ITERS // 5, flush),
+        library_max_abs_err=assert_bag_close(library(), want,
+                                             "F.embedding_bag"),
+        library_calls=calls)
     log("kernels", kernel="embedding_bag", **{
         key: repr(v) if isinstance(v, str) else v for key, v in rec.items()})
     return rec
@@ -2785,6 +2824,477 @@ def mesh_engine(dev, ds, closed, n_queries: int = MESH_ENGINE_QUERIES,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# train: the training core on the two ported arches
+# ---------------------------------------------------------------------------
+
+TRAIN_SEED = 8
+TRAIN_STEPS = 10            # two-tower train_batch steps, after one warm-up
+TRAIN_SPLIT = 2             # more steps timed in parts: fwd+bwd, adamw_update
+TRAIN_PARITY_ROWS = 4096    # rows of the batch held to a CPU copy
+ZIPF_EXPONENT = 1.1         # item popularity of the sampled-softmax batches
+PNA_TRAIN_STEPS = 20
+LAUNCHER_STEPS = (20, 30)   # the launcher's run, then its resume to 30
+# the card's gradient may stand this far (relative L2) from the CPU copy's
+# when the CPU copy's own fp32 rounding (against float64) is below it
+GRAD_REL_FLOOR = 1e-5
+GRAD_NOISE_FACTOR = 4.0
+
+
+def zipf_batch(cfg, b: int, seed: int) -> dict:
+    """A numpy ``train_batch`` of ``b`` rows, the YouTube sampled-softmax
+    traffic: users and their feature ids uniform over ``n_users``, items
+    drawn from a Zipf law (exponent ``ZIPF_EXPONENT``) over ``n_items``
+    (popularity ranks shuffled over the ids), ``logq`` the log of each
+    drawn item's probability."""
+    rng = np.random.default_rng(seed)
+    p = np.arange(1, cfg.n_items + 1, dtype=np.float64) ** -ZIPF_EXPONENT
+    p /= p.sum()
+    rank = rng.choice(cfg.n_items, size=b, p=p)
+    item_of_rank = rng.permutation(cfg.n_items)
+    return {"user_id": rng.integers(0, cfg.n_users, size=b, dtype=np.int32),
+            "user_feats": rng.integers(0, cfg.n_users,
+                                       size=(b, cfg.n_user_feats),
+                                       dtype=np.int32),
+            "item_id": item_of_rank[rank].astype(np.int32),
+            "logq": np.log(p[rank]).astype(np.float32)}
+
+
+def reset_peak(dev) -> int:
+    """Reset the peak-memory counter; returns the bytes allocated now (0 on
+    the CPU), which the peak then includes."""
+    import torch
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def peak_memory(dev, start: int) -> dict:
+    """Peak device memory since :func:`reset_peak` (``start`` bytes were
+    allocated then), or None on the CPU."""
+    import torch
+    if dev.type != "cuda":
+        return dict(peak_memory_bytes=None, peak_above_start_bytes=None)
+    peak = torch.cuda.max_memory_allocated(dev)
+    return dict(peak_memory_bytes=peak, peak_above_start_bytes=peak - start)
+
+
+def grad_parity(card: dict, cpu: dict, cpu64: dict, rows: dict,
+                what: str) -> dict:
+    """Gradients of the card against a CPU copy's, the copy's own fp32
+    rounding measured against its float64 run: for each parameter the
+    relative L2 distance card-to-CPU must stay within ``GRAD_NOISE_FACTOR``
+    times the CPU's distance to float64, or ``GRAD_REL_FLOOR``.  ``rows``
+    names, per table, the card rows the copy holds.  Returns the worst
+    ratios and elementwise errors."""
+    import torch
+    out = {}
+    for k, g in card.items():
+        g = (g[rows[k]] if k in rows else g).detach().cpu().double()
+        h, t = cpu[k].double(), cpu64[k]
+        norm = float(t.norm()) or 1.0
+        err_card = float((g - h).norm()) / norm
+        err_cpu = float((h - t).norm()) / norm
+        limit = max(GRAD_REL_FLOOR, GRAD_NOISE_FACTOR * err_cpu)
+        if not err_card <= limit:
+            raise AssertionError(
+                f"{what} gradient {k}: card vs CPU {err_card:.3g} > "
+                f"{limit:.3g} (CPU fp32 vs float64 {err_cpu:.3g})")
+        out[k] = (err_card, err_cpu, float((g - h).abs().max()))
+    worst = max(out, key=lambda k: out[k][0])
+    return dict(worst_param=worst, worst_rel_l2=out[worst][0],
+                cpu_fp32_vs_fp64=out[worst][1],
+                max_rel_l2=max(v[0] for v in out.values()),
+                max_abs_err=max(v[2] for v in out.values()))
+
+
+def update_parity(model, state, cpu_model, cpu_state, rows: dict,
+                  what: str) -> float:
+    """Parameters and moments after one ``adamw_update`` from the same
+    gradients on the card and on the CPU copy: within rtol 1e-5 and an
+    atol of 1e-6 of each tensor's largest magnitude (the same arithmetic;
+    the global norm's sum runs in another order).  Returns the largest
+    |err|."""
+    import torch
+    card = {"param": dict(model.named_parameters()), "mu": state.mu,
+            "nu": state.nu}
+    cpu = {"param": dict(cpu_model.named_parameters()), "mu": cpu_state.mu,
+           "nu": cpu_state.nu}
+    worst = 0.0
+    for part in card:
+        for k, t in card[part].items():
+            got = (t[rows[k]] if k in rows else t).detach().cpu()
+            want = cpu[part][k].detach()
+            atol = 1e-6 * float(want.abs().max())
+            if not torch.allclose(got, want, rtol=1e-5, atol=atol):
+                raise AssertionError(f"{what}: {part} {k} after adamw_update "
+                                     "differs card vs CPU")
+            worst = max(worst, float((got - want).abs().max()))
+    if int(state.step) != int(cpu_state.step):
+        raise AssertionError(f"{what}: step counts differ")
+    return worst
+
+
+def zero_launches() -> list:
+    counters = all_launchers()
+    for fn in counters:
+        fn.launches = 0
+    return counters
+
+
+def check_no_launches(counters, what: str) -> dict:
+    """The train path reaches none of the port's kernels (its PNA step runs
+    the plain aggregator, the two-tower lookups are plain gathers)."""
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if any(launches.values()):
+        raise AssertionError(f"{what} launched a kernel: {launches}")
+    return launches
+
+
+def two_tower_cpu_copy(model, cfg, batch: dict, dtype):
+    """A CPU copy of ``model`` holding only the table rows ``batch``
+    touches (unique ids, remapped), in ``dtype``: (copy, its config, its
+    batch, {table: card rows})."""
+    import dataclasses
+    import torch
+    from repro_torch.models.recsys import (TwoTower, TwoTowerConfig,
+                                           set_two_tower_params)
+    users = torch.cat([batch["user_id"], batch["user_feats"].reshape(-1)])
+    u_rows = users.unique()
+    i_rows = batch["item_id"].unique()
+    cpu_cfg = dataclasses.replace(cfg, n_users=len(u_rows),
+                                  n_items=len(i_rows), dtype=dtype)
+
+    def remap(ids, rows):
+        return torch.searchsorted(rows, ids).to(torch.int32).cpu()
+
+    cpu_batch = {"user_id": remap(batch["user_id"], u_rows),
+                 "user_feats": remap(batch["user_feats"], u_rows),
+                 "item_id": remap(batch["item_id"], i_rows),
+                 "logq": batch["logq"].cpu().to(dtype)}
+
+    def c(t):
+        return t.detach().cpu().to(dtype).clone()
+
+    towers = [[(c(lin.weight), c(lin.bias)) for lin in tower]
+              for tower in (model.user_tower, model.item_tower)]
+    cpu = set_two_tower_params(TwoTower(cpu_cfg), c(model.user_emb[u_rows]),
+                               c(model.item_emb[i_rows]), towers)
+    return cpu, cpu_cfg, cpu_batch, {"user_emb": u_rows, "item_emb": i_rows}
+
+
+def two_tower_train(dev, model, cfg, b: int, steps: int = TRAIN_STEPS,
+                    split: int = TRAIN_SPLIT,
+                    parity_rows: int = TRAIN_PARITY_ROWS) -> dict:
+    """The two-tower ``train_batch`` step on ``model``: one warm-up step,
+    ``steps`` counted steps through the arch's step (step ms, examples/s,
+    peak memory, the loss of each step, which must be finite), ``split``
+    steps timed in their parts, then the first ``parity_rows`` rows of the
+    batch against a CPU copy of the rows they touch (loss, gradients, one
+    ``adamw_update`` from the same gradients) and the blocked loss against
+    the plain one on ``dev``."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.recsys import in_batch_softmax, \
+        in_batch_softmax_ref
+    from repro_torch.train import adamw_update, init_adamw, value_and_grad
+    from repro_torch.train.optimizer import AdamWState
+
+    arch = get_arch("two-tower-retrieval")
+    step = arch.step_fn(cfg, "train_batch")
+    loss_fn = arch.loss_fn(cfg, "train_batch")
+    t0 = time.perf_counter()
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in zipf_batch(cfg, b, TRAIN_SEED).items()}
+    data_s = time.perf_counter() - t0
+    mem0 = reset_peak(dev)
+    t0 = time.perf_counter()
+    opt = init_adamw(model)
+    _, opt, loss0 = step(model, opt, batch)            # warm-up
+    sync(dev)
+    warm_s = time.perf_counter() - t0
+    counters = zero_launches()
+    ms, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, opt, loss = step(model, opt, batch)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = check_no_launches(counters, "two-tower train_batch")
+    fwd_bwd, upd = [], []
+    for _ in range(split):
+        t0 = time.perf_counter()
+        _, grads = value_and_grad(loss_fn, model, batch)
+        sync(dev)
+        t1 = time.perf_counter()
+        _, opt = adamw_update(arch.opt, grads, opt, model)
+        sync(dev)
+        fwd_bwd.append((t1 - t0) * 1e3)
+        upd.append((time.perf_counter() - t1) * 1e3)
+        del grads
+    peak = peak_memory(dev, mem0)
+    if not all(np.isfinite([float(loss0)] + losses)):
+        raise AssertionError(f"two-tower train loss not finite: {losses}")
+    ms_a = np.array(ms)
+    fb, up = float(np.median(fwd_bwd)), float(np.median(upd))
+    rec = dict(batch=b, steps=steps, data_s=round(data_s, 3),
+               warmup_step_s=round(warm_s, 3),
+               step_p50_ms=round(float(np.percentile(ms_a, 50)), 3),
+               step_max_ms=round(float(ms_a.max()), 3),
+               examples_per_s=round(b / np.percentile(ms_a, 50) * 1e3, 1),
+               fwd_bwd_ms=round(fb, 3), adamw_ms=round(up, 3),
+               fwd_bwd_share=round(fb / (fb + up), 4),
+               adamw_share=round(up / (fb + up), 4),
+               **peak, loss_warmup=float(loss0),
+               losses=[round(v, 6) for v in losses],
+               kernel_launches=launches)
+    log("train", arch="two-tower-retrieval", shape="train_batch", **rec)
+
+    # parity: the first rows on a CPU copy of the rows they touch
+    sub = {k: v[:parity_rows] for k, v in batch.items()}
+    loss_c, grads_c = value_and_grad(loss_fn, model, sub)
+    copies = {}
+    for dtype in (torch.float32, torch.float64):
+        cpu, cpu_cfg, cpu_batch, rows = two_tower_cpu_copy(model, cfg, sub,
+                                                          dtype)
+        loss_h, grads_h = value_and_grad(
+            arch.loss_fn(cpu_cfg, "train_batch"), cpu, cpu_batch)
+        copies[dtype] = (cpu, float(loss_h), grads_h)
+    cpu, loss_h, grads_h = copies[torch.float32]
+    loss_64, grads_64 = copies[torch.float64][1:]
+    if not abs(float(loss_c) - loss_h) <= 1e-5 * abs(loss_h):
+        raise AssertionError(f"two-tower loss card {float(loss_c)} vs CPU "
+                             f"{loss_h}")
+    gpar = grad_parity(grads_c, grads_h, grads_64, rows, "two-tower")
+    # one update from the card's gradients on both sides
+    def host(t, k):             # a copy, also when dev is the CPU
+        return (t[rows[k]] if k in rows else t).to("cpu", copy=True)
+
+    cpu_state = AdamWState(step=opt.step.cpu(),
+                           mu={k: host(m, k) for k, m in opt.mu.items()},
+                           nu={k: host(v, k) for k, v in opt.nu.items()})
+    cpu_grads = {k: host(g, k) for k, g in grads_c.items()}
+    _, opt = adamw_update(arch.opt, grads_c, opt, model)
+    _, cpu_state = adamw_update(arch.opt, cpu_grads, cpu_state, cpu)
+    upd_err = update_parity(model, opt, cpu, cpu_state, rows, "two-tower")
+    outside = 0
+    for k, r in rows.items():         # in place: the gradients are spent
+        outside += int(grads_c[k].index_fill_(0, r.long(), 0.0)
+                       .count_nonzero())
+    if outside:
+        raise AssertionError(f"two-tower: {outside} gradient entries outside "
+                             "the batch's table rows")
+    del grads_c, cpu_grads, copies
+    # the blocked loss against the plain one on the card
+    with torch.no_grad():
+        u = model.user_embed(sub)
+        v = model.item_embed(sub["item_id"])
+    u.requires_grad_()
+    v.requires_grad_()
+    blk = in_batch_softmax(u, v, sub["logq"], 0.05)
+    ref = in_batch_softmax_ref(u, v, sub["logq"], 0.05)
+    gb = torch.autograd.grad(blk, (u, v))
+    gr = torch.autograd.grad(ref, (u, v))
+    blk, ref = float(blk.detach()), float(ref.detach())
+    blk_err = abs(blk - ref)
+    if not blk_err <= 1e-6 * abs(ref) + 1e-7:
+        raise AssertionError(f"blocked loss {blk} vs plain {ref}")
+    g_err = 0.0
+    for a, w in zip(gb, gr):
+        scale = max(1.0, float(w.abs().max()))
+        if not torch.allclose(a, w, rtol=1e-5, atol=1e-6 * scale):
+            raise AssertionError("blocked loss gradient vs plain")
+        g_err = max(g_err, float((a - w).abs().max()))
+    log("parity", path="two-tower train_batch", rows=parity_rows,
+        touched_user_rows=len(rows["user_emb"]),
+        touched_item_rows=len(rows["item_emb"]),
+        loss_card=float(loss_c), loss_cpu=loss_h, loss_fp64=loss_64,
+        gradients=gpar, gradient_outside_rows=outside,
+        adamw_update_max_abs_err=upd_err,
+        blocked_vs_plain_loss_err=blk_err, blocked_vs_plain_grad_err=g_err)
+    rec.update(parity_loss_card=float(loss_c), parity_loss_cpu=loss_h)
+    return rec
+
+
+def pna_train(dev, reduced: bool = False, b: int = None,
+              steps: int = PNA_TRAIN_STEPS) -> tuple:
+    """The PNA ``molecule`` train step (plain aggregator, as the reference
+    trains): step 1 on the card against a CPU copy (loss, gradients beside
+    the copy's float64 run, one ``adamw_update`` from the same gradients),
+    then ``steps`` counted steps through the arch's step: step ms, peak
+    memory, the losses.  Returns (record, model, AdamW state)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.pna import PNA_SHAPES, REDUCED_SHAPES
+    from repro_torch.models.gnn import PNA, set_pna_params
+    from repro_torch.train import adamw_update, init_adamw, value_and_grad
+
+    arch = get_arch("pna")
+    cfg = arch.config(reduced=reduced, shape="molecule")
+    spec = (REDUCED_SHAPES if reduced else PNA_SHAPES)["molecule"]
+    b = b or spec["batch"]
+    n = spec["n_nodes"]
+    model = arch.init(cfg, torch.Generator(device=dev).manual_seed(
+        TRAIN_SEED), device=dev)
+    adj, feats = molecule_graphs(b, n, cfg.d_in, seed=TRAIN_SEED)
+    labels = np.random.default_rng(TRAIN_SEED).integers(
+        0, cfg.n_classes, size=b).astype(np.int32)
+    batch = {"feats": torch.from_numpy(feats).to(dev),
+             "adj": torch.from_numpy(adj).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    loss_fn = arch.loss_fn(cfg, "molecule", reduced=reduced)
+    step = arch.step_fn(cfg, "molecule", reduced=reduced)
+
+    def copy(dtype):
+        c = lambda t: t.detach().cpu().to(dtype).clone()  # noqa: E731
+        m = set_pna_params(PNA(dataclasses.replace(cfg, dtype=dtype)),
+                           c(model.enc), c(model.dec),
+                           [(c(lp.w_msg), c(lp.w_upd))
+                            for lp in model.layers])
+        return m, {k: (v.cpu().to(dtype) if v.is_floating_point()
+                       else v.cpu()) for k, v in batch.items()}
+
+    cpu, cpu_batch = copy(torch.float32)
+    cpu64, batch64 = copy(torch.float64)
+    loss_c, grads_c = value_and_grad(loss_fn, model, batch)
+    loss_h, grads_h = value_and_grad(loss_fn, cpu, cpu_batch)
+    loss_64, grads_64 = value_and_grad(loss_fn, cpu64, batch64)
+    if not abs(float(loss_c) - float(loss_h)) <= 1e-5 * abs(float(loss_h)):
+        raise AssertionError(f"PNA loss card {float(loss_c)} vs CPU "
+                             f"{float(loss_h)}")
+    gpar = grad_parity(grads_c, grads_h, grads_64, {}, "PNA molecule")
+    opt, cpu_opt = init_adamw(model), init_adamw(cpu)
+    _, opt = adamw_update(arch.opt, grads_c, opt, model)
+    _, cpu_opt = adamw_update(arch.opt, {k: g.cpu() for k, g in
+                                         grads_c.items()}, cpu_opt, cpu)
+    upd_err = update_parity(model, opt, cpu, cpu_opt, {}, "PNA molecule")
+    log("parity", path="pna molecule train step 1", graphs=b,
+        loss_card=float(loss_c), loss_cpu=float(loss_h),
+        loss_fp64=float(loss_64), gradients=gpar,
+        adamw_update_max_abs_err=upd_err)
+
+    mem0 = reset_peak(dev)
+    counters = zero_launches()
+    ms, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, opt, loss = step(model, opt, batch)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = check_no_launches(counters, "PNA molecule train")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"PNA train loss not finite: {losses}")
+    ms_a = np.array(ms[1:] or ms)
+    rec = dict(graphs=b, n_nodes=n, layers=cfg.n_layers,
+               d_hidden=cfg.d_hidden, steps=steps,
+               first_step_ms=round(ms[0], 3),
+               step_p50_ms=round(float(np.percentile(ms_a, 50)), 3),
+               step_max_ms=round(float(ms_a.max()), 3),
+               graphs_per_s=round(b / np.percentile(ms_a, 50) * 1e3, 1),
+               **peak_memory(dev, mem0),
+               losses=[round(v, 6) for v in losses],
+               kernel_launches=launches)
+    log("train", arch="pna", shape="molecule", **rec)
+    return rec, model, opt
+
+
+def checkpoint_roundtrip(dev, model, opt) -> dict:
+    """Save ``(parameters, AdamW state)`` with a synchronous and an async
+    ``CheckpointManager``, restore each onto ``dev`` and require every
+    tensor bit-identical (dtype and device too)."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.train.optimizer import named_tensors
+
+    tree = (named_tensors(model), opt)
+    want = _flatten(tree)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for mode in ("sync", "async"):
+            mgr = CheckpointManager(os.path.join(d, mode), keep=1,
+                                    async_save=mode == "async")
+            t0 = time.perf_counter()
+            mgr.save(1, tree, extra={"note": mode})
+            mgr.wait()
+            t1 = time.perf_counter()
+            restored, step = mgr.restore(tree, device=dev)
+            sync(dev)
+            t2 = time.perf_counter()
+            got = _flatten(restored)
+            if step != 1 or list(got) != list(want):
+                raise AssertionError(f"{mode} checkpoint: keys or step differ")
+            for k, t in want.items():
+                r = got[k]
+                if (r.device.type != dev.type or r.dtype != t.dtype
+                        or not torch.equal(r, t)):
+                    raise AssertionError(f"{mode} checkpoint: {k} differs")
+            out[mode] = dict(save_s=round(t1 - t0, 4),
+                             restore_s=round(t2 - t1, 4))
+        nbytes = sum(t.numel() * t.element_size() for t in want.values())
+    log("train", checkpoint="pna molecule (parameters, AdamW state)",
+        tensors=len(want), bytes=nbytes, bit_identical=True,
+        restored_on=dev.type, **out)
+    log("train", checkpoint="two-tower FULL state not written",
+        why="'parameters and AdamW moments are 25.8 GB: minutes of disk "
+            "writes and more disk than the machine may have'")
+    return out
+
+
+def launcher_run(dev) -> dict:
+    """``python -m repro_torch.launch.train`` for two-tower at its reduced
+    config: ``LAUNCHER_STEPS[0]`` steps with a checkpoint directory, then
+    the same command resumed to ``LAUNCHER_STEPS[1]``; the losses must be
+    finite and fall."""
+    import tempfile
+    from repro_torch.launch.train import main as train_main
+
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--arch", "two-tower-retrieval", "--ckpt-dir", d,
+                "--ckpt-every", "10", "--device", dev.type]
+        first = train_main(argv + ["--steps", str(LAUNCHER_STEPS[0])])
+        resumed = train_main(argv + ["--steps", str(LAUNCHER_STEPS[1])])
+    losses = first["losses"] + resumed["losses"]
+    if not np.isfinite([v for _, v in losses]).all():
+        raise AssertionError(f"launcher losses not finite: {losses}")
+    if resumed["steps"] != LAUNCHER_STEPS[1] - LAUNCHER_STEPS[0] or \
+            resumed["losses"][0][0] != LAUNCHER_STEPS[0]:
+        raise AssertionError("the launcher did not resume from its "
+                             "checkpoint")
+    if not losses[-1][1] < losses[0][1]:
+        raise AssertionError(f"launcher loss did not fall: {losses}")
+    rec = dict(steps=LAUNCHER_STEPS, losses=losses,
+               seconds=[round(first["seconds"], 3),
+                        round(resumed["seconds"], 3)])
+    log("train", path="launch.train two-tower-retrieval (reduced)", **rec)
+    return rec
+
+
+def train_phases(dev, model, reduced: bool = False) -> dict:
+    """The ``train`` phase: two-tower ``train_batch`` on ``model`` (B =
+    65,536; the REDUCED batch with ``reduced``), PNA ``molecule``, a
+    checkpoint round trip of the molecule state and the launcher with a
+    resume."""
+    from repro_torch.configs.recsys_common import (RECSYS_SHAPES,
+                                                   REDUCED_RECSYS_SHAPES)
+    shapes = REDUCED_RECSYS_SHAPES if reduced else RECSYS_SHAPES
+    t0 = time.perf_counter()
+    tt = two_tower_train(dev, model, model.cfg,
+                         shapes["train_batch"]["batch"])
+    pna, pna_model, pna_opt = pna_train(dev, reduced=reduced)
+    checkpoint_roundtrip(dev, pna_model, pna_opt)
+    launcher = launcher_run(dev)
+    seconds = time.perf_counter() - t0
+    log("train", seconds=f"{seconds:.1f}")
+    return dict(two_tower=tt, pna=pna, launcher=launcher, seconds=seconds)
+
+
 def all_launchers() -> list:
     """The launch-counted wrapper of every kernel of the port."""
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda
@@ -3064,9 +3574,15 @@ def main(argv=None) -> int:
     # at (512, 4) the launch floor, not the bytes bound, is the least time
     records.append(dict(bag_phases(dev, flush, model.user_emb),
                         launch_floor_ms=floor_ms))
+    # ---- train: the two-tower train step on the same FULL model, PNA ----
+    train = train_phases(dev, model)
     del model
     torch.cuda.empty_cache()
     records.append(pna_phases(dev, flush, args.profile, base, floor_ms))
+    for rcd in records:   # the train path runs none of the port's kernels
+        rcd["train_launches"] = (
+            train["two_tower"]["kernel_launches"][rcd["name"] + "_cuda"]
+            + train["pna"]["kernel_launches"][rcd["name"] + "_cuda"])
 
     # ---- engine: HCPS serving at LAION-1M scale, four shards ----
     t0 = time.perf_counter()

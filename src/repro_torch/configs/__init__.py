@@ -18,5 +18,6 @@ def get_arch(name: str):
     if name not in _MODULES:
         raise NotImplementedError(
             f"arch {name!r} is not ported (ported: {ARCH_IDS}); the other "
-            "arches wait in ROADMAP.md queue 1 (item 5 for models/)")
+            "arches wait in ROADMAP.md queue 1 (item 5c for the other recsys "
+            "arches, 5d for the LMs)")
     return importlib.import_module(_MODULES[name]).ARCH

@@ -3,7 +3,7 @@
 :class:`CellDef`, :class:`TensorSpec` (the port's
 ``jax.ShapeDtypeStruct``) and :func:`param_specs`, shared by the arches;
 the LM shapes and ``LMArch`` wait for the LM slice (ROADMAP queue 1
-item 5).
+item 5d).
 """
 from __future__ import annotations
 

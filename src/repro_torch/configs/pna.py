@@ -7,11 +7,13 @@ Shapes (as in the reference):
   ogb_products   n=2,449,029 e=61,859,140 d_feat=100 (full-batch-large)
   molecule       n=30 e=64 batch=128 (dense-batched; fused aggregator)
 
-Ported here: the model, its parameters and the dense-batched inference
+Ported here: the model, its parameters, the dense-batched inference
 ``repro_torch.models.gnn.forward_dense`` (the path that reaches the
-``pna_aggregate`` kernel).  Every cell of the reference is a train step,
-and those wait for the losses and AdamW (ROADMAP.md queue 1 item 5), so
-``step_fn`` and ``abstract_inputs`` raise ``NotImplementedError``.
+``pna_aggregate`` kernel) and the ``molecule`` train step (``loss_dense``
+with ``use_kernel=False``, as the reference trains, then one AdamW step).
+The sparse and minibatch regimes wait for ROADMAP.md queue 1 item 5b:
+their ``step_fn``, ``loss_fn`` and ``abstract_inputs`` raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.device import DeviceLike
-from repro_torch.models.gnn import PNA, PNAConfig, init_pna
+from repro_torch.models.gnn import PNA, PNAConfig, init_pna, loss_dense
+from repro_torch.train.loop import make_train_step
+from repro_torch.train.optimizer import AdamWConfig, adamw_specs
 
 from .lm_common import CellDef, TensorSpec, param_specs
 
@@ -57,14 +61,15 @@ REDUCED_SHAPES: Dict[str, Dict] = {
                      d_feat=8, classes=2),
 }
 
-_NOT_PORTED = ("the PNA train steps are not ported yet (the losses and "
-               "AdamW: ROADMAP.md queue 1 item 5); inference is "
-               "repro_torch.models.gnn.forward_dense")
+_NOT_PORTED = ("PNA's {regime} regime ({shape}) is not ported yet "
+               "(forward_sparse, forward_minibatch and loss_sparse: "
+               "ROADMAP.md queue 1 item 5b); the molecule cell trains")
 
 
 class PNAArch:
     family = "gnn"
     name = "pna"
+    opt = AdamWConfig(lr=1e-3)
 
     def config(self, reduced: bool = False, shape: str = "full_graph_sm"):
         spec = (REDUCED_SHAPES if reduced else PNA_SHAPES)[shape]
@@ -87,11 +92,38 @@ class PNAArch:
         """Parameter name -> :class:`TensorSpec`, from :meth:`module`."""
         return param_specs(self.module(cfg))
 
+    def _spec(self, shape: str, reduced: bool) -> Dict:
+        """The cell's shape; raises for the regimes not yet ported."""
+        spec = (REDUCED_SHAPES if reduced else PNA_SHAPES)[shape]
+        if spec["regime"] != "dense":
+            raise NotImplementedError(_NOT_PORTED.format(
+                regime=spec["regime"], shape=shape))
+        return spec
+
+    def loss_fn(self, cfg, shape: str, reduced: bool = False):
+        """``loss(model, batch)``, the scalar the train step
+        differentiates: ``loss_dense`` with the plain aggregator."""
+        self._spec(shape, reduced)
+
+        def loss(model: PNA, batch):
+            return loss_dense(cfg, model, batch["feats"], batch["adj"],
+                              batch["labels"], use_kernel=False)
+        return loss
+
     def step_fn(self, cfg, shape: str, reduced: bool = False):
-        raise NotImplementedError(_NOT_PORTED)
+        """(model, opt_state, batch) -> (model, opt_state, loss): the loss
+        and its gradients, then one AdamW step, in place."""
+        return make_train_step(self.loss_fn(cfg, shape, reduced), self.opt)
 
     def abstract_inputs(self, cfg, shape: str, reduced: bool = False):
-        raise NotImplementedError(_NOT_PORTED)
+        """(parameter specs, AdamW state specs, batch specs) of a cell."""
+        spec = self._spec(shape, reduced)
+        params = self.abstract_params(cfg)
+        b, nn = spec["batch"], spec["n_nodes"]
+        batch = {"feats": TensorSpec((b, nn, spec["d_feat"]), torch.float32),
+                 "adj": TensorSpec((b, nn, nn), torch.float32),
+                 "labels": TensorSpec((b,), torch.int32)}
+        return (params, adamw_specs(params), batch)
 
 
 ARCH = PNAArch()

@@ -6,15 +6,19 @@ Shapes (as in the reference):
   serve_bulk     batch=262,144   (offline scoring)
   retrieval_cand batch=1, n_candidates=1,048,576 (candidate scoring)
 
-``make_train``, ``opt_specs`` and the mesh helpers (``dp_of``,
-``all_axes``, ``recsys_param_spec_tree``) wait for training and
-``distributed/`` (ROADMAP queue 1 items 8-9).
+``make_train`` builds an arch's train step from its loss (AdamW with
+``lr=1e-3``); ``opt_specs`` lays the optimizer state out as the parameters
+are.  The training mesh helpers (``dp_of``, ``all_axes``,
+``recsys_param_spec_tree``) wait for ROADMAP queue 1 item 5e.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
+
+from repro_torch.train.loop import make_train_step
+from repro_torch.train.optimizer import AdamWConfig, AdamWState
 
 from .lm_common import CellDef, TensorSpec, param_specs
 
@@ -38,6 +42,7 @@ REDUCED_RECSYS_SHAPES: Dict[str, Dict] = {
 
 class RecsysArchBase:
     family = "recsys"
+    opt = AdamWConfig(lr=1e-3)
 
     def cells(self):
         return [CellDef(s, spec["kind"])
@@ -50,3 +55,15 @@ class RecsysArchBase:
     def abstract_params(self, cfg) -> Dict[str, TensorSpec]:
         """Parameter name -> :class:`TensorSpec`, from :meth:`module`."""
         return param_specs(self.module(cfg))
+
+    def make_train(self, loss_fn: Callable):
+        """``train(model, opt_state, batch) -> (model, opt_state, loss)``:
+        the loss and its gradients, then one AdamW step with ``self.opt``,
+        in place."""
+        return make_train_step(loss_fn, self.opt)
+
+    def opt_specs(self, pspec):
+        """The optimizer state's placement from the parameters' ``pspec``
+        (a tree keyed by parameter name): each moment as its parameter,
+        the step count replicated (``None``)."""
+        return AdamWState(step=None, mu=pspec, nu=pspec)

@@ -6,8 +6,10 @@ under a structured predicate (a (B, n) mask): ACORN's hybrid-search
 problem.  Ported: the ``serve`` step, the one-device ``retrieval`` step
 ``retrieve_local`` (user tower + ``filtered_topk``) and the mesh-explicit
 :func:`filtered_retrieval_step` (candidates split over every mesh axis,
-per-shard top-k, k-row all-gather, merge).  The ``train`` step waits for
-the losses and the optimizer (ROADMAP queue 1 item 5).
+per-shard top-k, k-row all-gather, merge).  The ``train`` step: the
+in-batch sampled softmax ``two_tower_loss`` (blocked, so the (B, B) logits
+of ``train_batch``'s 65,536 rows are never whole) and one AdamW step, in
+place.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from repro_torch.device import DeviceLike
 from repro_torch.distributed.collectives import Mesh, all_gather_cat, top_k
 from repro_torch.kernels.filtered_topk import filtered_topk
 from repro_torch.models.recsys import (TwoTower, TwoTowerConfig,
-                                       init_two_tower)
+                                       init_two_tower, two_tower_loss)
+from repro_torch.train.optimizer import adamw_specs
 
 from .recsys_common import (RECSYS_SHAPES, REDUCED_RECSYS_SHAPES,
                             RecsysArchBase, TensorSpec)
@@ -73,7 +76,7 @@ def filtered_retrieval_step(mesh: Mesh, cfg: TwoTowerConfig, k: int = TOPK):
 class TwoTowerArch(RecsysArchBase):
     name = "two-tower-retrieval"
 
-    def config(self, reduced: bool = False):
+    def config(self, reduced: bool = False, shape: Optional[str] = None):
         return REDUCED if reduced else FULL
 
     def module(self, cfg) -> TwoTower:
@@ -91,17 +94,27 @@ class TwoTowerArch(RecsysArchBase):
             "logq": TensorSpec((b,), torch.float32),
         }
 
+    def loss_fn(self, cfg, shape: str):
+        """``train`` cells: ``loss(model, batch)``, the scalar the train
+        step differentiates (``two_tower_loss``)."""
+        if RECSYS_SHAPES[shape]["kind"] != "train":
+            raise ValueError(f"{shape} is not a train cell")
+
+        def loss(model: TwoTower, batch):
+            return two_tower_loss(cfg, model, batch)
+        return loss
+
     def step_fn(self, cfg, shape: str, mesh=None):
-        """``serve``: (model, batch) -> (B,) user-item scores.
+        """``train``: (model, opt_state, batch) -> (model, opt_state, loss),
+        the model and the AdamW state updated in place.
+        ``serve``: (model, batch) -> (B,) user-item scores.
         ``retrieval``: (model, batch, cand_embs (n, E'), mask (B, n)) ->
         (ids (B, k), scores (B, k)), k = min(TOPK, n), +u.v scores; with a
         ``mesh``, :func:`filtered_retrieval_step` (each rank passes its
         candidate block, mask columns and base row)."""
         kind = RECSYS_SHAPES[shape]["kind"]
         if kind == "train":
-            raise NotImplementedError(
-                "the two-tower train step is not ported yet (two_tower_loss "
-                "and AdamW: ROADMAP.md queue 1 item 5)")
+            return self.make_train(self.loss_fn(cfg, shape))
         if kind == "serve":
             # online scoring: user embedding . embedding of the request item
             def serve(model: TwoTower, batch):
@@ -120,13 +133,11 @@ class TwoTowerArch(RecsysArchBase):
 
     def abstract_inputs(self, cfg, shape: str, reduced: bool = False):
         spec = (REDUCED_RECSYS_SHAPES if reduced else RECSYS_SHAPES)[shape]
-        if spec["kind"] == "train":
-            raise NotImplementedError(
-                "train inputs need the optimizer state (AdamW: ROADMAP.md "
-                "queue 1 item 5)")
         params = self.abstract_params(cfg)
         b = spec["batch"]
         batch = self._batch_struct(cfg, b)
+        if spec["kind"] == "train":
+            return (params, adamw_specs(params), batch)
         if spec["kind"] == "serve":
             return (params, batch)
         n = spec["n_candidates"]

@@ -1,7 +1,8 @@
 """Carry the JAX reference's state across, as numpy arrays.
 
 The JAX package's ``LayeredGraph``, ``AttributeTable``, oracle
-partitions, serving-engine shards and model parameter trees are turned
+partitions, serving-engine shards, model parameter trees and AdamW
+states are turned
 into numpy by the caller (``np.asarray`` on each field or leaf); these
 functions build the port's
 counterparts from that numpy alone, so this module never needs JAX.  The
@@ -10,7 +11,7 @@ own weights.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,6 +25,7 @@ from repro_torch.models.gnn import PNA, PNAConfig, set_pna_params
 from repro_torch.models.recsys import (TwoTower, TwoTowerConfig,
                                        set_two_tower_params)
 from repro_torch.serve.engine import EngineConfig, ServingEngine
+from repro_torch.train.optimizer import AdamWState
 
 
 def _i32(a, dev) -> torch.Tensor:
@@ -123,6 +125,35 @@ def engine_from_arrays(shards: Sequence[Mapping], acorn: AcornConfig,
                          indexes=indexes)
 
 
+def _two_tower_arrays(tree: Mapping) -> Dict[str, np.ndarray]:
+    """A reference two-tower tree (``user_emb``, ``item_emb`` and
+    ``user_tower`` / ``item_tower`` each ``{"w": [(d_in, d_out), ...],
+    "b": [(d_out,), ...]}``) as ``{port parameter name: array}``; each
+    ``w`` transposed into ``nn.Linear``'s (out, in)."""
+    out = {"user_emb": np.asarray(tree["user_emb"]),
+           "item_emb": np.asarray(tree["item_emb"])}
+    for name in ("user_tower", "item_tower"):
+        for i, (w, b) in enumerate(zip(tree[name]["w"], tree[name]["b"])):
+            out[f"{name}.{i}.weight"] = np.asarray(w).T
+            out[f"{name}.{i}.bias"] = np.asarray(b)
+    return out
+
+
+def _pna_arrays(tree: Mapping) -> Dict[str, np.ndarray]:
+    """A reference PNA tree (``enc``, ``dec``, ``layers`` of ``{"w_msg",
+    "w_upd"}``) as ``{port parameter name: array}``; same layouts."""
+    out = {"enc": np.asarray(tree["enc"]), "dec": np.asarray(tree["dec"])}
+    for i, lp in enumerate(tree["layers"]):
+        out[f"layers.{i}.w_msg"] = np.asarray(lp["w_msg"])
+        out[f"layers.{i}.w_upd"] = np.asarray(lp["w_upd"])
+    return out
+
+
+def _tensor(a, dev, dtype=torch.float32) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+        device=dev, dtype=dtype)
+
+
 def two_tower_params_from_arrays(tree: Mapping, cfg: TwoTowerConfig,
                                  device: DeviceLike = "cuda") -> TwoTower:
     """A :class:`TwoTower` that computes what the reference's
@@ -133,18 +164,13 @@ def two_tower_params_from_arrays(tree: Mapping, cfg: TwoTowerConfig,
     ``{"w": [(d_in, d_out), ...], "b": [(d_out,), ...]}``; each ``w`` is
     transposed into ``nn.Linear``'s (out, in)."""
     dev = resolve_device(device)
-
-    def t(a, transpose=False):
-        a = np.asarray(a, dtype=np.float32)
-        return torch.from_numpy(np.array(a.T if transpose else a)).to(
-            device=dev, dtype=cfg.dtype)
-
-    towers = [[(t(w, transpose=True), t(b))
-               for w, b in zip(tree[name]["w"], tree[name]["b"])]
+    named = {k: _tensor(a, dev, cfg.dtype)
+             for k, a in _two_tower_arrays(tree).items()}
+    towers = [[(named[f"{name}.{i}.weight"], named[f"{name}.{i}.bias"])
+               for i in range(len(tree[name]["w"]))]
               for name in ("user_tower", "item_tower")]
-    return set_two_tower_params(TwoTower(cfg),
-                                t(tree["user_emb"]), t(tree["item_emb"]),
-                                towers)
+    return set_two_tower_params(TwoTower(cfg), named["user_emb"],
+                                named["item_emb"], towers)
 
 
 def pna_params_from_arrays(tree: Mapping, cfg: PNAConfig,
@@ -156,11 +182,42 @@ def pna_params_from_arrays(tree: Mapping, cfg: PNAConfig,
     (d_in, d_hidden), ``dec`` (d_hidden, C) and ``layers``, a list of
     ``{"w_msg", "w_upd"}``; the layouts are the same in both packages."""
     dev = resolve_device(device)
+    named = {k: _tensor(a, dev, cfg.dtype)
+             for k, a in _pna_arrays(tree).items()}
+    return set_pna_params(
+        PNA(cfg), named["enc"], named["dec"],
+        [(named[f"layers.{i}.w_msg"], named[f"layers.{i}.w_upd"])
+         for i in range(len(tree["layers"]))])
 
-    def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=dev, dtype=cfg.dtype)
 
-    return set_pna_params(PNA(cfg), t(tree["enc"]), t(tree["dec"]),
-                          [(t(lp["w_msg"]), t(lp["w_upd"]))
-                           for lp in tree["layers"]])
+def param_arrays(tree: Mapping, model: torch.nn.Module
+                 ) -> Dict[str, np.ndarray]:
+    """A reference tree over ``model``'s parameters (the parameters
+    themselves, their gradients or a moment; numpy leaves) as
+    ``{port parameter name: array}``, in the port's layouts.  ``model`` is
+    a :class:`TwoTower` or a :class:`PNA`."""
+    named = {TwoTower: _two_tower_arrays, PNA: _pna_arrays}[type(model)](tree)
+    if sorted(named) != sorted(k for k, _ in model.named_parameters()):
+        raise ValueError("the tree's keys do not match the model's "
+                         "parameters")
+    return named
+
+
+def adamw_state_from_arrays(step, mu: Mapping, nu: Mapping,
+                            model: torch.nn.Module,
+                            device: DeviceLike = "cuda") -> AdamWState:
+    """The port's :class:`AdamWState` for ``model`` (a :class:`TwoTower`
+    or a :class:`PNA`) from the reference's ``AdamWState`` given as numpy:
+    ``step`` and the ``mu`` / ``nu`` trees, which have the reference's
+    parameter keys.  The moments are renamed and transposed as the
+    parameter converters do, so a port step continues a reference step."""
+    dev = resolve_device(device)
+
+    def moments(tree):
+        return {k: _tensor(a, dev)
+                for k, a in param_arrays(tree, model).items()}
+
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev),
+        mu=moments(mu), nu=moments(nu))

@@ -30,8 +30,8 @@ def pna_aggregate_cuda(adj: torch.Tensor, feats: torch.Tensor
                          f"expected ({b}, {n}, {n})")
     if torch.is_grad_enabled() and (adj.requires_grad or feats.requires_grad):
         raise NotImplementedError(
-            "pna_aggregate has no backward on the card (ROADMAP.md queue 1 "
-            "item 5: the PNA train steps)")
+            "pna_aggregate has no backward on the card; train through "
+            "forward_dense(..., use_kernel=False), as the reference does")
     out = torch.empty((b, n, 4 * f), dtype=torch.float32, device=adj.device)
     if out.numel() == 0:
         return out

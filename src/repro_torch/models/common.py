@@ -1,9 +1,9 @@
-"""Parameter initialisers shared by the models.
+"""Parameter initialisers and losses shared by the models.
 
-Each draws from a ``torch.Generator`` on the target device (the tensors are
-made on the generator's device).  Torch cannot reproduce ``jax.random``,
-so the parity tests carry the reference's parameters across with
-``repro_torch.convert`` instead of re-drawing them.
+Each initialiser draws from a ``torch.Generator`` on the target device (the
+tensors are made on the generator's device).  Torch cannot reproduce
+``jax.random``, so the parity tests carry the reference's parameters
+across with ``repro_torch.convert`` instead of re-drawing them.
 """
 from __future__ import annotations
 
@@ -30,6 +30,38 @@ def embed_init(generator: torch.Generator, v: int, d: int,
     """(v, d) normal embedding table with std ``scale``."""
     t = torch.empty((v, d), dtype=torch.float32, device=generator.device)
     return t.normal_(0.0, scale, generator=generator).to(dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits (..., C) of any float dtype, labels (...) int -> scalar fp32
+    (float64 for float64 logits) mean negative log-likelihood (over
+    ``mask``'s weight when given, at least 1).  As the reference's
+    ``take_along_axis`` in ``"fill"`` mode: a label in [-C, 0) counts from
+    the end, and a label outside [-C, C) gives NaN (the gather index is
+    clamped first, so a CUDA gather never reads out of range)."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    c = logits.shape[-1]
+    lse = torch.logsumexp(logits, dim=-1)
+    idx = torch.where(labels < 0, labels + c, labels)
+    ll = torch.gather(logits, -1,
+                      idx.clamp(0, c - 1).long()[..., None])[..., 0]
+    ll = torch.where((idx >= 0) & (idx < c), ll, float("nan"))
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.to(logits.dtype)
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
+                    ) -> torch.Tensor:
+    """Mean binary cross-entropy of logits against {0, 1} labels, in fp32,
+    in the reference's stable form."""
+    logits = logits.float()
+    labels = labels.float()
+    return (logits.clamp_min(0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs()))).mean()
 
 
 def param_count(params: Any) -> int:

@@ -1,14 +1,18 @@
 """PNA — Principal Neighbourhood Aggregation (arXiv:2004.05718).
 
-Ported so far: the dense-batched (``molecule``) regime's inference,
+Ported so far: the dense-batched (``molecule``) regime,
 :func:`forward_dense`, which runs the fused multi-aggregator
-``pna_aggregate`` (a CUDA kernel on the card) once per layer.  The
-reference (``repro/models/gnn.py``) keeps parameters as a pytree; here
-they are a :class:`PNA` module with the reference's names and layouts
-((d_in, d_out) matrices, no biases), so ``h @ w`` reads the same.
+``pna_aggregate`` (a CUDA kernel on the card) once per layer, and its
+loss :func:`loss_dense`.  Training passes ``use_kernel=False``, as the
+reference's train step does: the plain aggregator then runs on whatever
+device the tensors are on and has a gradient, which the kernel has not.
+The reference (``repro/models/gnn.py``) keeps parameters as a pytree;
+here they are a :class:`PNA` module with the reference's names and
+layouts ((d_in, d_out) matrices, no biases), so ``h @ w`` reads the same.
 
-Still to port (ROADMAP.md queue 1 item 5): ``forward_sparse``,
-``forward_minibatch``, ``build_csr``, ``sample_fanout`` and the losses.
+Still to port (ROADMAP.md queue 1 item 5b): ``forward_sparse``,
+``forward_minibatch``, ``build_csr``, ``sample_fanout`` and
+``loss_sparse``.
 """
 from __future__ import annotations
 
@@ -19,9 +23,10 @@ import torch
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.pna_aggregate import pna_aggregate
+from repro_torch.kernels.pna_aggregate import (pna_aggregate,
+                                               pna_aggregate_ref)
 
-from .common import dense_init, set_params
+from .common import cross_entropy, dense_init, set_params
 
 Tensor = torch.Tensor
 
@@ -120,15 +125,25 @@ def _scale(agg: Tensor, deg: Tensor, delta: float) -> Tensor:
 
 
 def forward_dense(cfg: PNAConfig, model: PNA, feats: Tensor,
-                  adj: Tensor) -> Tensor:
+                  adj: Tensor, use_kernel: bool = True) -> Tensor:
     """feats (B, N, d_in), adj (B, N, N) in {0, 1} (row = destination) ->
     graph logits (B, C).  The pool is a mean over all N nodes, padding
-    nodes included, as in the reference."""
+    nodes included, as in the reference.  ``use_kernel=False`` runs the
+    plain aggregator on the tensors' device (differentiable) instead of
+    ``pna_aggregate``'s device routing."""
+    aggregate = pna_aggregate if use_kernel else pna_aggregate_ref
     h = torch.relu(feats @ model.enc)
     deg = adj.sum(-1)
     for lay in model.layers:
         msgs = h @ lay.w_msg
-        agg = pna_aggregate(adj, msgs)                          # (B, N, 4F)
+        agg = aggregate(adj, msgs)                              # (B, N, 4F)
         z = torch.cat([h, _scale(agg, deg, cfg.avg_log_degree)], dim=-1)
         h = torch.relu(z @ lay.w_upd)
     return h.mean(dim=1) @ model.dec
+
+
+def loss_dense(cfg: PNAConfig, model: PNA, feats: Tensor, adj: Tensor,
+               labels: Tensor, use_kernel: bool = True) -> Tensor:
+    """Graph-classification cross-entropy of :func:`forward_dense`."""
+    return cross_entropy(forward_dense(cfg, model, feats, adj,
+                                       use_kernel=use_kernel), labels)

@@ -5,10 +5,11 @@ and applies pure functions; here the model is an ``nn.Module`` whose
 methods keep the reference's names (``user_embed``, ``item_embed``,
 ``score_candidates``).  Tower weights are ``nn.Linear`` (out, in), the
 transpose of the reference's (d_in, d_out); ``repro_torch.convert``
-carries a reference parameter tree across.
+carries a reference parameter tree across.  :func:`two_tower_loss` is the
+train step's loss: an in-batch sampled softmax whose (B, B) logits are
+never held whole (:class:`InBatchSoftmax`).
 
-Still to port (ROADMAP queue 1 item 5): ``two_tower_loss``, DIEN, SASRec
-and DCN-v2.
+Still to port (ROADMAP queue 1 item 5c): DIEN, SASRec and DCN-v2.
 """
 from __future__ import annotations
 
@@ -20,9 +21,13 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 
-from .common import dense_init, embed_init, set_params
+from .common import cross_entropy, dense_init, embed_init, set_params
 
 Tensor = torch.Tensor
+
+# rows of the (B, B) logits one block of InBatchSoftmax holds: 4,096 rows of
+# a 65,536 batch are 1.07 GB of fp32
+LOSS_BLOCK = 4096
 
 
 def default_lookup(table: Tensor, ids: Tensor) -> Tensor:
@@ -135,7 +140,9 @@ def init_two_tower(cfg: TwoTowerConfig,
     tables N(0, 0.02^2), tower weights N(0, 1/d_in), zero biases.  Draws
     from ``generator`` (on ``device``; a fresh one seeded 0 if None) in the
     reference's order: user table, item table, user tower, item tower.
-    Parameters do not require grad: the ported steps only serve."""
+    Parameters do not require grad: serving needs none, and the train
+    step (``repro_torch.train.loop.value_and_grad``) turns it on for its
+    own call only."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -151,3 +158,93 @@ def init_two_tower(cfg: TwoTowerConfig,
                for lin in tower]
               for tower in (model.user_tower, model.item_tower)]
     return set_two_tower_params(model, user_emb, item_emb, towers)
+
+
+# ---------------------------------------------------------------------------
+# training: in-batch sampled softmax with logQ correction
+# ---------------------------------------------------------------------------
+
+
+def in_batch_softmax_ref(u: Tensor, v: Tensor, logq: Tensor,
+                         temperature: float) -> Tensor:
+    """The plain version: the whole (B, B) logits ``u v^T / T - logq`` and
+    a cross-entropy against the diagonal, as the reference writes it."""
+    logits = (u @ v.T) / temperature - logq[None, :]
+    labels = torch.arange(u.shape[0], device=u.device)
+    return cross_entropy(logits, labels)
+
+
+class InBatchSoftmax(torch.autograd.Function):
+    """:func:`in_batch_softmax_ref` in row blocks of ``block``, in the
+    inputs' dtype.
+
+    The forward keeps only each row's logsumexp; the backward recomputes
+    each block's logits and softmax, so memory is O(block x B) where the
+    plain version holds the (B, B) logits, the saved log-softmax and two
+    gradients of that size (51.5 GB at B = 65,536)."""
+
+    @staticmethod
+    def forward(ctx, u, v, logq, temperature: float, block: int):
+        b = u.shape[0]
+        lse = u.new_empty(b)
+        diag = u.new_empty(b)
+        for r in range(0, b, block):
+            s = (u[r:r + block] @ v.T).div_(temperature).sub_(logq[None, :])
+            lse[r:r + block] = torch.logsumexp(s, dim=-1)
+            diag[r:r + block] = s.diagonal(offset=r)
+        ctx.save_for_backward(u, v, logq, lse)
+        ctx.temperature, ctx.block = temperature, block
+        return (lse - diag).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        u, v, logq, lse = ctx.saved_tensors
+        t, block = ctx.temperature, ctx.block
+        b = u.shape[0]
+        du = torch.empty_like(u)
+        dv = torch.zeros_like(v)
+        dlogq = torch.zeros_like(logq) if ctx.needs_input_grad[2] else None
+        for r in range(0, b, block):
+            rows = slice(r, r + block)
+            s = (u[rows] @ v.T).div_(t).sub_(logq[None, :])
+            # d loss / d logits = (softmax - onehot) * g / B
+            p = s.sub_(lse[rows, None]).exp_()
+            p.diagonal(offset=r).sub_(1.0)
+            p.mul_(g / b)
+            if dlogq is not None:
+                dlogq.sub_(p.sum(dim=0))
+            p.div_(t)
+            du[rows] = p @ v
+            dv.addmm_(p.T, u[rows])
+        return du, dv, dlogq, None, None
+
+
+def in_batch_softmax(u: Tensor, v: Tensor, logq: Tensor,
+                     temperature: float, block: int = LOSS_BLOCK) -> Tensor:
+    """In-batch sampled softmax with logQ correction: user i's positive is
+    item i, every other item of the batch a negative, each logit
+    ``u_i . v_j / T - logq_j``; the mean negative log-likelihood in fp32
+    (float64 inputs stay float64), computed in blocks of ``block`` rows
+    (:class:`InBatchSoftmax`)."""
+    dt = torch.promote_types(u.dtype, torch.float32)
+    return InBatchSoftmax.apply(u.to(dt), v.to(dt), logq.to(dt),
+                                temperature, block)
+
+
+def two_tower_loss(cfg: TwoTowerConfig, model: TwoTower,
+                   batch: Dict[str, Tensor], temperature: float = 0.05,
+                   block: int = LOSS_BLOCK) -> Tensor:
+    """The reference's ``two_tower_loss``: both towers on the batch, then
+    the in-batch sampled softmax with logQ correction (``batch['logq']``,
+    the log of each item's sampling probability)."""
+    u = model.user_embed(batch)                                  # (B, E')
+    v = model.item_embed(batch["item_id"])                       # (B, E')
+    return in_batch_softmax(u, v, batch["logq"], temperature, block)
+
+
+def two_tower_score_candidates(cfg: TwoTowerConfig, model: TwoTower,
+                               batch: Dict[str, Tensor],
+                               cand_item_embs: Tensor) -> Tensor:
+    """retrieval_cand as the reference's free function:
+    :meth:`TwoTower.score_candidates` (B, N)."""
+    return model.score_candidates(batch, cand_item_embs)

@@ -1,0 +1,129 @@
+"""``chip_smoke.py``'s train phase on CPU tensors, at the REDUCED configs.
+
+The phase's functions take any device: on the CPU they run the two-tower
+``train_batch`` step on a REDUCED model (its 32-row batch drawn from the
+phase's Zipf law), held to a CPU copy of the rows it touches and to that
+copy's float64 run; the PNA ``molecule`` step at its REDUCED shape; a
+checkpoint round trip; and the launcher with a resume.  No kernel
+launches on the train path.  Tolerances: as the phase's own checks (loss
+rtol 1e-5; gradients within 4x the CPU copy's own fp32 distance to
+float64, or 1e-5 relative L2; one ``adamw_update`` from the same
+gradients within rtol 1e-5 and 1e-6 of each tensor's largest magnitude).
+"""
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_arch
+from torch_parity import one_thread  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+CPU = torch.device("cpu")
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    return _chip_smoke()
+
+
+def _model(seed=0):
+    arch = get_arch("two-tower-retrieval")
+    cfg = arch.config(reduced=True)
+    return arch.init(cfg, torch.Generator().manual_seed(seed), device="cpu")
+
+
+def test_zipf_batch_law(smoke):
+    cfg = get_arch("two-tower-retrieval").config(reduced=True)
+    a = smoke.zipf_batch(cfg, 4096, seed=1)
+    b = smoke.zipf_batch(cfg, 4096, seed=1)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+    assert a["user_feats"].shape == (4096, cfg.n_user_feats)
+    assert a["item_id"].dtype == np.int32 and a["logq"].dtype == np.float32
+    assert 0 <= a["user_id"].min() and a["user_id"].max() < cfg.n_users
+    assert 0 <= a["item_id"].min() and a["item_id"].max() < cfg.n_items
+    # logq is the drawn item's log-probability: one value per item, and
+    # the most frequent item has the largest
+    ids, counts = np.unique(a["item_id"], return_counts=True)
+    per_item = {int(i): set(a["logq"][a["item_id"] == i]) for i in ids[:20]}
+    assert all(len(v) == 1 for v in per_item.values())
+    top = ids[np.argmax(counts)]
+    assert a["logq"][a["item_id"] == top][0] == a["logq"].max()
+    assert np.isclose(np.exp(a["logq"].max()),
+                      1 / np.sum(np.arange(1, cfg.n_items + 1) ** -1.1),
+                      rtol=1e-5)
+
+
+def test_two_tower_train_runs_on_cpu_tensors(smoke, capsys):
+    model = _model()
+    rec = smoke.two_tower_train(CPU, model, model.cfg, 32, steps=2,
+                                split=1, parity_rows=16)
+    assert rec["batch"] == 32 and len(rec["losses"]) == 2
+    assert set(rec["kernel_launches"].values()) == {0}
+    assert rec["peak_memory_bytes"] is None
+    assert rec["peak_above_start_bytes"] is None
+    assert 0 < rec["fwd_bwd_share"] < 1
+    out = capsys.readouterr().out
+    assert "[train] arch=two-tower-retrieval shape=train_batch" in out
+    assert "[parity] path=two-tower train_batch rows=16" in out
+    assert not any(p.requires_grad for p in model.parameters())
+
+
+def test_pna_train_runs_on_cpu_tensors(smoke, capsys):
+    rec, model, opt = smoke.pna_train(CPU, reduced=True, steps=3)
+    assert rec["graphs"] == 4 and rec["layers"] == 2
+    assert len(rec["losses"]) == 3 and int(opt.step) == 4
+    assert set(rec["kernel_launches"].values()) == {0}
+    assert "[parity] path=pna molecule train step 1" in capsys.readouterr().out
+
+
+def test_grad_parity_rejects_a_wrong_gradient(smoke):
+    rng = np.random.default_rng(0)
+    g64 = {"w": torch.from_numpy(rng.normal(size=(50, 8)))}
+    cpu = {"w": g64["w"].float()}
+    card = {"w": cpu["w"].clone()}
+    smoke.grad_parity(card, cpu, g64, {}, "same")
+    card["w"][3, 4] += 1e-3 * float(cpu["w"].norm())
+    with pytest.raises(AssertionError, match="card vs CPU"):
+        smoke.grad_parity(card, cpu, g64, {}, "perturbed")
+
+
+def test_checkpoint_roundtrip_and_launcher_on_cpu(smoke, capsys):
+    _, model, opt = smoke.pna_train(CPU, reduced=True, steps=1)
+    out = smoke.checkpoint_roundtrip(CPU, model, opt)
+    assert set(out) == {"sync", "async"}
+    rec = smoke.launcher_run(CPU)
+    assert rec["losses"][0][0] == 0 and rec["losses"][-1][0] == 29
+    log = capsys.readouterr().out
+    assert "bit_identical=True" in log
+    assert "two-tower FULL state not written" in log
+
+
+def test_train_phases_compose_on_cpu(smoke, capsys):
+    res = smoke.train_phases(CPU, _model(1), reduced=True)
+    assert res["two_tower"]["batch"] == 32 and res["pna"]["graphs"] == 4
+    assert "[train] seconds=" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("kind", ["random", "padding", "clip", "dup"])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_bag_library_matches_plain(smoke, kind, mode):
+    from repro_torch.kernels.embedding_bag import embedding_bag_ref
+    ids, table, _ = (torch.from_numpy(a) for a in smoke.bag_inputs(
+        17, 5, 40, 8, kind=kind, seed=3))
+    fn, calls = smoke.bag_library(ids, table, mode)
+    torch.testing.assert_close(fn(), embedding_bag_ref(ids, table, mode),
+                               rtol=1e-5, atol=1e-5)
+    assert "1 call" in calls

@@ -9,6 +9,7 @@
   versions, and the CUDA launchers refuse CPU tensors before any build.
 """
 import ast
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -19,13 +20,15 @@ import repro_torch
 from repro_torch.configs import get_arch
 from repro_torch.configs.pna import ARCH as PNA_ARCH
 from repro_torch.configs.two_tower_retrieval import REDUCED
-from repro_torch.convert import (engine_from_arrays, graph_from_arrays,
+from repro_torch.convert import (adamw_state_from_arrays,
+                                 engine_from_arrays, graph_from_arrays,
                                  oracle_from_arrays, pna_params_from_arrays,
                                  table_from_arrays,
                                  two_tower_params_from_arrays)
 from repro_torch.core import (AcornConfig, HybridIndex, sentinel_result)
 from repro_torch.data import make_hcps_dataset, make_lcps_dataset
 from repro_torch.launch.serve import main as serve_main
+from repro_torch.launch.train import main as train_main
 from repro_torch.serve import EngineConfig, ServingEngine
 from repro_torch.kernels import loader
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
@@ -87,6 +90,16 @@ ENTRY_POINTS = {
         AcornConfig(M=4, gamma=2), EngineConfig()),
     "launch.serve": lambda: serve_main(["--n", "64", "--d", "4",
                                         "--shards", "1"]),
+    "launch.train": lambda: train_main(["--arch", "two-tower-retrieval",
+                                        "--steps", "2"]),
+    "adamw_state_from_arrays": lambda: adamw_state_from_arrays(
+        0, {"enc": np.zeros((8, 16)), "dec": np.zeros((16, 2)),
+            "layers": []}, {"enc": np.zeros((8, 16)),
+                            "dec": np.zeros((16, 2)), "layers": []},
+        pna_params_from_arrays({"enc": np.zeros((8, 16)),
+                                "dec": np.zeros((16, 2)), "layers": []},
+                               dataclasses.replace(PNA_REDUCED, n_layers=0),
+                               device="cpu")),
     "graph_from_arrays": lambda: graph_from_arrays(
         [np.full((2, 2), -1)], [np.arange(2)], [np.arange(2)], 0,
         np.zeros(2)),

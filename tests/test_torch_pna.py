@@ -117,9 +117,12 @@ def test_init_follows_the_reference_law():
 
 @pytest.mark.parametrize("method", ["step_fn", "abstract_inputs"])
 def test_train_steps_are_not_ported(method):
-    cfg = ARCH.config(shape="molecule")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(ARCH, method)(cfg, "molecule")
+    # the molecule (dense) cell trains now (tests/test_torch_train_steps.py);
+    # the sparse and minibatch regimes wait for ROADMAP queue 1 item 5b
+    for shape in ("full_graph_sm", "minibatch_lg", "ogb_products"):
+        cfg = ARCH.config(shape=shape)
+        with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
+            getattr(ARCH, method)(cfg, shape)
 
 
 def test_card_matches_cpu(cuda_device):

@@ -209,5 +209,5 @@ def test_cuda_kernel_matches_plain_version(cuda_device, ci):
 def test_cuda_kernel_refuses_autograd(cuda_device):
     adj, feats = (torch.from_numpy(a).to(cuda_device)
                   for a in _inputs(1, 8, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="use_kernel=False"):
         pna_aggregate(adj, feats.requires_grad_())

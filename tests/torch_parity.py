@@ -17,8 +17,9 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from repro_torch.convert import (graph_from_arrays, pna_params_from_arrays,
-                                 table_from_arrays)
+from repro_torch.convert import (adamw_state_from_arrays, graph_from_arrays,
+                                 pna_params_from_arrays, table_from_arrays,
+                                 two_tower_params_from_arrays)
 
 # caption words of the random trees' regex leaves
 KW_WORDS = ["animal", "green", "blue", "city", "ocean"]
@@ -174,10 +175,41 @@ def port_table(t, device="cpu"):
 
 def port_pna(params, cfg, device="cpu"):
     """The port's ``PNA`` from a reference ``init_pna`` parameter tree."""
-    tree = {"enc": np.asarray(params["enc"]), "dec": np.asarray(params["dec"]),
-            "layers": [{k: np.asarray(v) for k, v in lp.items()}
-                       for lp in params["layers"]]}
-    return pna_params_from_arrays(tree, cfg, device=device)
+    return pna_params_from_arrays(_numpy_tree(params), cfg, device=device)
+
+
+def _numpy_tree(tree):
+    """A JAX pytree (dicts and lists of arrays) as numpy."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy_tree(v) for v in tree]
+    return np.asarray(tree)
+
+
+def port_two_tower(params, cfg, device="cpu"):
+    """The port's ``TwoTower`` from a reference ``init_two_tower`` tree."""
+    return two_tower_params_from_arrays(_numpy_tree(params), cfg,
+                                        device=device)
+
+
+def port_adamw_state(state, model, device="cpu"):
+    """The port's ``AdamWState`` for ``model`` (a ported ``TwoTower`` or
+    ``PNA``) from a reference ``AdamWState`` over the same parameters."""
+    return adamw_state_from_arrays(np.asarray(state.step),
+                                   _numpy_tree(state.mu),
+                                   _numpy_tree(state.nu), model,
+                                   device=device)
+
+
+def assert_grad_close(got, want, rtol, atol=1e-6, what=""):
+    """|got - want| <= rtol |want| + atol max(1, max|want|), elementwise:
+    above magnitude 1 a gradient's fp32 rounding grows with its largest
+    entry (one ulp of 10 is ~1e-6), so the atol scales with it there."""
+    got, want = np.asarray(got), np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max())) if want.size else 1.0
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol * scale,
+                               err_msg=what)
 
 
 def molecule_graphs(b, n, d_in, seed, min_nodes=None, undirected_edges=32):
