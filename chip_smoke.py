@@ -7,7 +7,8 @@
                             # two-tower retrieval_cand (n = 1,048,576),
                             # embedding_bag, the train steps (two-tower
                             # train_batch at B = 65,536, PNA molecule,
-                            # checkpoints, the launcher), PNA molecule
+                            # checkpoints, the launcher; PNA full_graph_sm,
+                            # minibatch_lg, ogb_products), PNA molecule
                             # inference, the
                             # sharded HCPS serving engine (n = 2^20) and
                             # the distributed paths on a one-rank NCCL
@@ -141,7 +142,27 @@ Phases, each printed on its own line:
            bit-identical (the two-tower FULL state, 25.8 GB, is not
            written); ``python -m repro_torch.launch.train`` for two-tower
            at its reduced config, 20 steps, then resumed to 30: finite,
-           falling losses.
+           falling losses.  Then, the two-tower model freed, PNA's sparse
+           and minibatch cells (``pna_sparse_phases``), none launching a
+           kernel: ``full_graph_sm`` at Cora's shape (2,708 nodes, 10,752
+           edges of which 196 padding with dst -1, 140 labelled) with
+           step 1 against CPU copies of the plain layer
+           (``pna_layer_sparse_ref``) as above (the fp32 gradients with a
+           1e-2 floor: a ReLU input within rounding of 0 may land on the
+           other side) and the card's path in float64 against the CPU's
+           float64 copy within 1e-9, then 20 counted steps;
+           ``minibatch_lg``'s sampler on a uniform graph of Reddit's
+           size (232,965 nodes, 114,615,892 edges; ``build_csr`` and
+           ``sample_fanout`` of 1,024 seeds at fanouts (15, 10) timed
+           once) and one step on the sampled block against CPU copies,
+           then the cell's fixed-shape batch at 4 layers, 20 counted
+           steps (layers 3-4: zero gradients, moved by weight decay
+           alone); ``ogb_products`` on a 2^16-node, 2^20-edge cut of its
+           law with ``EDGE_CHUNK`` 2^18 (4 chunks) against CPU copies,
+           then at full size (2,449,408 nodes, 61,859,328 edges, 196,615
+           labelled): a no-grad forward, a warm-up step whose loss must
+           equal it within 1e-5, 5 counted steps (finite, falling), peak
+           memory and the data's host and transfer times.
   pna      PNA (``get_arch("pna")``, ``molecule`` shape: 4 layers,
            d_in 16, d_hidden 75, 2 classes) with random weights from a
            seed: ``pna_aggregate`` against its plain version at
@@ -2882,14 +2903,13 @@ def peak_memory(dev, start: int) -> dict:
 
 
 def grad_parity(card: dict, cpu: dict, cpu64: dict, rows: dict,
-                what: str) -> dict:
+                what: str, floor: float = GRAD_REL_FLOOR) -> dict:
     """Gradients of the card against a CPU copy's, the copy's own fp32
     rounding measured against its float64 run: for each parameter the
     relative L2 distance card-to-CPU must stay within ``GRAD_NOISE_FACTOR``
-    times the CPU's distance to float64, or ``GRAD_REL_FLOOR``.  ``rows``
-    names, per table, the card rows the copy holds.  Returns the worst
-    ratios and elementwise errors."""
-    import torch
+    times the CPU's distance to float64, or ``floor``.  ``rows`` names,
+    per table, the card rows the copy holds.  Returns the worst ratios and
+    elementwise errors."""
     out = {}
     for k, g in card.items():
         g = (g[rows[k]] if k in rows else g).detach().cpu().double()
@@ -2897,7 +2917,7 @@ def grad_parity(card: dict, cpu: dict, cpu64: dict, rows: dict,
         norm = float(t.norm()) or 1.0
         err_card = float((g - h).norm()) / norm
         err_cpu = float((h - t).norm()) / norm
-        limit = max(GRAD_REL_FLOOR, GRAD_NOISE_FACTOR * err_cpu)
+        limit = max(floor, GRAD_NOISE_FACTOR * err_cpu)
         if not err_card <= limit:
             raise AssertionError(
                 f"{what} gradient {k}: card vs CPU {err_card:.3g} > "
@@ -3126,12 +3146,9 @@ def pna_train(dev, reduced: bool = False, b: int = None,
     the copy's float64 run, one ``adamw_update`` from the same gradients),
     then ``steps`` counted steps through the arch's step: step ms, peak
     memory, the losses.  Returns (record, model, AdamW state)."""
-    import dataclasses
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.pna import PNA_SHAPES, REDUCED_SHAPES
-    from repro_torch.models.gnn import PNA, set_pna_params
-    from repro_torch.train import adamw_update, init_adamw, value_and_grad
 
     arch = get_arch("pna")
     cfg = arch.config(reduced=reduced, shape="molecule")
@@ -3146,49 +3163,13 @@ def pna_train(dev, reduced: bool = False, b: int = None,
     batch = {"feats": torch.from_numpy(feats).to(dev),
              "adj": torch.from_numpy(adj).to(dev),
              "labels": torch.from_numpy(labels).to(dev)}
-    loss_fn = arch.loss_fn(cfg, "molecule", reduced=reduced)
-    step = arch.step_fn(cfg, "molecule", reduced=reduced)
-
-    def copy(dtype):
-        c = lambda t: t.detach().cpu().to(dtype).clone()  # noqa: E731
-        m = set_pna_params(PNA(dataclasses.replace(cfg, dtype=dtype)),
-                           c(model.enc), c(model.dec),
-                           [(c(lp.w_msg), c(lp.w_upd))
-                            for lp in model.layers])
-        return m, {k: (v.cpu().to(dtype) if v.is_floating_point()
-                       else v.cpu()) for k, v in batch.items()}
-
-    cpu, cpu_batch = copy(torch.float32)
-    cpu64, batch64 = copy(torch.float64)
-    loss_c, grads_c = value_and_grad(loss_fn, model, batch)
-    loss_h, grads_h = value_and_grad(loss_fn, cpu, cpu_batch)
-    loss_64, grads_64 = value_and_grad(loss_fn, cpu64, batch64)
-    if not abs(float(loss_c) - float(loss_h)) <= 1e-5 * abs(float(loss_h)):
-        raise AssertionError(f"PNA loss card {float(loss_c)} vs CPU "
-                             f"{float(loss_h)}")
-    gpar = grad_parity(grads_c, grads_h, grads_64, {}, "PNA molecule")
-    opt, cpu_opt = init_adamw(model), init_adamw(cpu)
-    _, opt = adamw_update(arch.opt, grads_c, opt, model)
-    _, cpu_opt = adamw_update(arch.opt, {k: g.cpu() for k, g in
-                                         grads_c.items()}, cpu_opt, cpu)
-    upd_err = update_parity(model, opt, cpu, cpu_opt, {}, "PNA molecule")
-    log("parity", path="pna molecule train step 1", graphs=b,
-        loss_card=float(loss_c), loss_cpu=float(loss_h),
-        loss_fp64=float(loss_64), gradients=gpar,
-        adamw_update_max_abs_err=upd_err)
-
+    opt, _ = pna_step_parity(dev, model, arch.loss_fn(cfg, "molecule",
+                                                      reduced=reduced),
+                             batch, "dense", "pna molecule", graphs=b)
     mem0 = reset_peak(dev)
-    counters = zero_launches()
-    ms, losses = [], []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        _, opt, loss = step(model, opt, batch)
-        sync(dev)
-        ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(loss))
-    launches = check_no_launches(counters, "PNA molecule train")
-    if not np.isfinite(losses).all():
-        raise AssertionError(f"PNA train loss not finite: {losses}")
+    opt, ms, losses, launches = counted_steps(
+        dev, arch.step_fn(cfg, "molecule", reduced=reduced), model, opt,
+        batch, steps, "PNA molecule train")
     ms_a = np.array(ms[1:] or ms)
     rec = dict(graphs=b, n_nodes=n, layers=cfg.n_layers,
                d_hidden=cfg.d_hidden, steps=steps,
@@ -3293,6 +3274,483 @@ def train_phases(dev, model, reduced: bool = False) -> dict:
     seconds = time.perf_counter() - t0
     log("train", seconds=f"{seconds:.1f}")
     return dict(two_tower=tt, pna=pna, launcher=launcher, seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
+# pna_sparse: PNA's sparse and minibatch train cells
+# ---------------------------------------------------------------------------
+
+SPARSE_SEED = 9
+SPARSE_STEPS = 20      # counted full_graph_sm and minibatch_lg steps
+OGB_STEPS = 5          # counted ogb_products steps, after one warm-up
+# The sparse cells' step-1 parity.  Their fp32 gradients may also differ
+# from the CPU copy's where a ReLU input lies within fp32 rounding of 0
+# and lands on the other side: on the sampled Reddit block one such
+# element (pre-activation 6.4e-8 in float64, <= 0 on the card) moved
+# layer 2's gradients by 1.1e-3 (relative L2) while the CPU copy's fp32
+# stood 1.8e-7 from float64.  So the card's code path also runs in float64,
+# held to the CPU float64 copy within SPARSE_FP64_TOL, and the fp32
+# gradients keep the noise rule with a floor of SPARSE_GRAD_FLOOR.
+SPARSE_FP64_TOL = 1e-9
+SPARSE_GRAD_FLOOR = 1e-2
+# each cell's graph at full size and REDUCED: the real nodes and edges (the
+# rest padding: edges with dst -1, nodes without edges or labels) and the
+# labelled nodes (full_graph_sm: Cora's 140; ogb_products: the 196,615 of
+# ogbn-products' train split); src and dst uniform over the real nodes
+SPARSE_GRAPHS = {
+    False: {"full_graph_sm": dict(real_nodes=2_708, real_edges=10_556,
+                                  labelled=140),
+            "ogb_products": dict(real_nodes=2_449_029,
+                                 real_edges=61_859_140, labelled=196_615)},
+    True: {"full_graph_sm": dict(real_nodes=200, real_edges=790,
+                                 labelled=40),
+           "ogb_products": dict(real_nodes=290, real_edges=1_190,
+                                labelled=60)}}
+# ogb_products' parity cut (nodes, edges, EDGE_CHUNK: 4 chunks) of the
+# same law, its model the cell's.  Cut from 2^18 nodes and 2^22 edges, whose
+# CPU copies (fp32 and float64, the plain layer) took 142 s on the card's
+# 8-core host, nearly all of the 150 s this part may add to the run
+OGB_CUT = {False: (1 << 16, 1 << 20, 1 << 18), True: (96, 400, 100)}
+# the sampler's graph (Reddit: nodes, edges), its seeds and fanouts
+REDDIT = {False: dict(nodes=232_965, edges=114_615_892, seeds=1_024,
+                      fanouts=(15, 10)),
+          True: dict(nodes=3_000, edges=30_000, seeds=32, fanouts=(3, 2))}
+
+
+def sparse_batch(dev, n: int, e: int, d_feat: int, classes: int,
+                 real_nodes: int, real_edges: int, labelled: int,
+                 seed: int) -> tuple:
+    """A sparse cell's batch on ``dev``: src / dst uniform over the real
+    nodes from numpy generators, the padding edges' dst -1 (src 0);
+    features normal from a ``torch.Generator`` on ``dev`` (padding nodes
+    zero); labels uniform over the classes; ``label_mask`` 1 on
+    ``labelled`` real nodes drawn without replacement.  Returns (batch,
+    host seconds generating, seconds moving to ``dev``)."""
+    import torch
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    src = np.zeros(e, np.int32)
+    dst = np.full(e, -1, np.int32)
+    src[:real_edges] = rng.integers(0, real_nodes, real_edges, dtype=np.int32)
+    dst[:real_edges] = rng.integers(0, real_nodes, real_edges, dtype=np.int32)
+    labels = rng.integers(0, classes, n, dtype=np.int32)
+    mask = np.zeros(n, np.float32)
+    mask[rng.choice(real_nodes, labelled, replace=False)] = 1.0
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in (
+        ("src", src), ("dst", dst), ("labels", labels), ("label_mask", mask))}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.zeros((n, d_feat), device=dev)
+    feats[:real_nodes].normal_(generator=gen)
+    batch["feats"] = feats
+    sync(dev)
+    return batch, host_s, time.perf_counter() - t0
+
+
+def pna_copy(model, batch: dict, dtype) -> tuple:
+    """A CPU copy of a PNA ``model`` and its ``batch`` in ``dtype``."""
+    import dataclasses
+    from repro_torch.models.gnn import PNA, set_pna_params
+
+    def c(t):
+        return t.detach().cpu().to(dtype).clone()
+    cpu = set_pna_params(PNA(dataclasses.replace(model.cfg, dtype=dtype)),
+                         c(model.enc), c(model.dec),
+                         [(c(lp.w_msg), c(lp.w_upd)) for lp in model.layers])
+    return cpu, {k: (v.cpu().to(dtype) if v.is_floating_point() else v.cpu())
+                 for k, v in batch.items()}
+
+
+def plain_loss(regime: str):
+    """The loss of a PNA regime on the plain layer (``pna_layer_sparse_ref``,
+    every (E, F) tensor at once, the reference op for op), for the CPU
+    copies; ``dense``: the arch's own (the plain aggregator)."""
+    from repro_torch.models.common import cross_entropy
+    from repro_torch.models.gnn import (forward_minibatch, loss_dense,
+                                        loss_sparse, pna_layer_sparse_ref,
+                                        take_rows)
+    if regime == "dense":
+        return lambda m, b: loss_dense(m.cfg, m, b["feats"], b["adj"],
+                                       b["labels"], use_kernel=False)
+    if regime == "sparse":
+        return lambda m, b: loss_sparse(
+            m.cfg, m, b["feats"], b["src"], b["dst"], b["labels"],
+            b["label_mask"], layer=pna_layer_sparse_ref)
+    return lambda m, b: cross_entropy(take_rows(forward_minibatch(
+        m.cfg, m, b["feats"], [(b["src2"], b["dst2"]), (b["src1"], b["dst1"])],
+        b["feats"].shape[0], layer=pna_layer_sparse_ref), b["seed_idx"]),
+        b["labels"])
+
+
+def pna_step_parity(dev, model, loss_fn, batch: dict, regime: str,
+                    what: str, sparse: bool = False, **logged) -> tuple:
+    """Step 1 of a PNA cell on ``dev`` against CPU copies running the plain
+    version (``plain_loss``): the loss within rtol 1e-5 of the fp32 copy's,
+    the gradients beside the copy's float64 run (``grad_parity``), one
+    ``adamw_update`` from the card's gradients on both (``update_parity``;
+    ``model`` takes that step).  ``sparse``: the card's path also runs in
+    float64 and must give the CPU float64 copy's loss and gradients
+    within ``SPARSE_FP64_TOL`` (relative L2), and the fp32 gradients are
+    held with the floor ``SPARSE_GRAD_FLOOR``.  Returns (AdamW state, CPU
+    seconds)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.train import adamw_update, init_adamw, value_and_grad
+    opt_cfg = get_arch("pna").opt
+    loss_c, grads_c = value_and_grad(loss_fn, model, batch)
+    t0 = time.perf_counter()
+    cpu, cpu_batch = pna_copy(model, batch, torch.float32)
+    loss_h, grads_h = value_and_grad(plain_loss(regime), cpu, cpu_batch)
+    cpu64, batch64 = pna_copy(model, batch, torch.float64)
+    loss_64, grads_64 = value_and_grad(plain_loss(regime), cpu64, batch64)
+    cpu_s = time.perf_counter() - t0
+    if not abs(float(loss_c) - float(loss_h)) <= 1e-5 * abs(float(loss_h)):
+        raise AssertionError(f"{what} loss card {float(loss_c)} vs CPU "
+                             f"{float(loss_h)}")
+    fp64 = None
+    if sparse:       # the card's code path in float64: an exact check
+        card64 = cpu64.to(dev)
+        loss_c64, grads_c64 = value_and_grad(
+            loss_fn, card64, {k: v.to(dev) for k, v in batch64.items()})
+        fp64 = max([abs(float(loss_c64) - float(loss_64))
+                    / abs(float(loss_64))]
+                   + [float((g.cpu() - grads_64[k]).norm())
+                      / (float(grads_64[k].norm()) or 1.0)
+                      for k, g in grads_c64.items()])
+        if not fp64 <= SPARSE_FP64_TOL:
+            raise AssertionError(f"{what} in float64: card vs CPU {fp64:.3g}"
+                                 f" > {SPARSE_FP64_TOL}")
+        del card64, grads_c64
+    del cpu64, batch64
+    gpar = grad_parity(grads_c, grads_h, grads_64, {}, what,
+                       floor=SPARSE_GRAD_FLOOR if sparse else GRAD_REL_FLOOR)
+    opt, cpu_opt = init_adamw(model), init_adamw(cpu)
+    _, opt = adamw_update(opt_cfg, grads_c, opt, model)
+    _, cpu_opt = adamw_update(opt_cfg, {k: g.cpu() for k, g in
+                                        grads_c.items()}, cpu_opt, cpu)
+    upd_err = update_parity(model, opt, cpu, cpu_opt, {}, what)
+    log("parity", path=f"{what} train step 1", **logged,
+        loss_card=float(loss_c), loss_cpu=float(loss_h),
+        loss_fp64=float(loss_64), gradients=gpar,
+        **({} if fp64 is None else dict(card_fp64_vs_cpu_fp64=fp64)),
+        adamw_update_max_abs_err=upd_err, cpu_s=round(cpu_s, 3))
+    return opt, cpu_s
+
+
+def counted_steps(dev, step, model, opt, batch, steps: int, what: str,
+                  check=None) -> tuple:
+    """``steps`` steps of ``step`` with the launch counters zeroed just
+    before and read just after (none may launch); ``check(opt)`` after
+    each.  Returns (AdamW state, step ms, losses, launches)."""
+    counters = zero_launches()
+    ms, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, opt, loss = step(model, opt, batch)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        if check:
+            check(opt)
+    launches = check_no_launches(counters, what)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{what} loss not finite: {losses}")
+    return opt, ms, losses, launches
+
+
+def step_stats(ms) -> dict:
+    ms_a = np.array(ms[1:] or ms)
+    return dict(first_step_ms=round(ms[0], 3),
+                step_p50_ms=round(float(np.percentile(ms_a, 50)), 3),
+                step_max_ms=round(float(ms_a.max()), 3))
+
+
+def sparse_cell_train(dev, shape: str, reduced: bool = False,
+                      steps: int = SPARSE_STEPS) -> dict:
+    """``full_graph_sm`` (or another sparse cell) at its shape: the batch
+    of ``sparse_batch``, step 1 against CPU copies (``pna_step_parity``),
+    then ``steps`` counted steps: step ms, peak memory, the losses."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.pna import PNA_SHAPES, REDUCED_SHAPES
+    arch = get_arch("pna")
+    spec = (REDUCED_SHAPES if reduced else PNA_SHAPES)[shape]
+    cfg = arch.config(reduced=reduced, shape=shape)
+    batch, host_s, move_s = sparse_batch(
+        dev, spec["n_nodes"], spec["n_edges"], spec["d_feat"],
+        spec["classes"], seed=SPARSE_SEED, **SPARSE_GRAPHS[reduced][shape])
+    model = arch.init(cfg, torch.Generator(device=dev).manual_seed(
+        SPARSE_SEED), device=dev)
+    loss_fn = arch.loss_fn(cfg, shape, reduced=reduced)
+    opt, _ = pna_step_parity(dev, model, loss_fn, batch, "sparse",
+                             f"pna {shape}", sparse=True,
+                             n_nodes=spec["n_nodes"], n_edges=spec["n_edges"])
+    mem0 = reset_peak(dev)
+    opt, ms, losses, launches = counted_steps(
+        dev, arch.step_fn(cfg, shape, reduced=reduced), model, opt, batch,
+        steps, f"PNA {shape} train")
+    rec = dict(n_nodes=spec["n_nodes"], n_edges=spec["n_edges"],
+               d_feat=spec["d_feat"], layers=cfg.n_layers,
+               d_hidden=cfg.d_hidden, steps=steps, data_host_s=round(host_s, 3),
+               data_move_s=round(move_s, 3), **step_stats(ms),
+               **peak_memory(dev, mem0), losses=[round(v, 6) for v in losses],
+               kernel_launches=launches)
+    log("train", arch="pna", shape=shape, **rec)
+    return rec
+
+
+def reddit_sampler(dev, reduced: bool = False) -> dict:
+    """``minibatch_lg``'s real sampler at Reddit scale: a numpy-seeded
+    uniform graph, ``build_csr`` and ``sample_fanout`` timed on the host
+    (one run each), the block's node and edge counts; then one step of the
+    cell's model on the sampled block (unpadded, as the reference's
+    ``test_pna_neighbor_sampler_real``) against CPU copies."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.pna import PNA_SHAPES, REDUCED_SHAPES
+    from repro_torch.models.gnn import build_csr, sample_fanout
+    arch = get_arch("pna")
+    g = REDDIT[reduced]
+    spec = (REDUCED_SHAPES if reduced else PNA_SHAPES)["minibatch_lg"]
+    cfg = arch.config(reduced=reduced, shape="minibatch_lg")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SPARSE_SEED)
+    src = rng.integers(0, g["nodes"], g["edges"], dtype=np.int32)
+    dst = rng.integers(0, g["nodes"], g["edges"], dtype=np.int32)
+    seeds = rng.choice(g["nodes"], g["seeds"], replace=False).astype(np.int32)
+    t1 = time.perf_counter()
+    indptr, indices = build_csr(g["nodes"], src, dst)
+    del src, dst
+    t2 = time.perf_counter()
+    nodes, blocks, seed_idx = sample_fanout(indptr, indices, seeds,
+                                            g["fanouts"], rng)
+    t3 = time.perf_counter()
+    del indptr, indices
+    (s2, d2), (s1, d1) = blocks
+    labels = rng.integers(0, spec["classes"], len(seed_idx), dtype=np.int32)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in (
+        ("src2", s2), ("dst2", d2), ("src1", s1), ("dst1", d1),
+        ("seed_idx", seed_idx), ("labels", labels))}
+    batch["feats"] = torch.randn(
+        (len(nodes), spec["d_feat"]), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SPARSE_SEED))
+    model = arch.init(cfg, torch.Generator(device=dev).manual_seed(
+        SPARSE_SEED), device=dev)
+    counters = zero_launches()
+    _, cpu_s = pna_step_parity(
+        dev, model, arch.loss_fn(cfg, "minibatch_lg", reduced=reduced), batch,
+        "minibatch", "pna minibatch_lg sampled block", sparse=True,
+        block_nodes=len(nodes), hop_edges=(len(s2), len(s1)))
+    launches = check_no_launches(counters, "PNA sampled block")
+    rec = dict(graph_nodes=g["nodes"], graph_edges=g["edges"],
+               seeds=g["seeds"], fanouts=g["fanouts"],
+               data_host_s=round(t1 - t0, 3), build_csr_s=round(t2 - t1, 3),
+               sample_fanout_s=round(t3 - t2, 3), block_nodes=len(nodes),
+               hop_edges=(len(s2), len(s1)), seed_rows=len(seed_idx),
+               parity_cpu_s=round(cpu_s, 3), kernel_launches=launches)
+    log("train", arch="pna", shape="minibatch_lg", part="sampler", **rec)
+    return rec
+
+
+def minibatch_cell(dev, reduced: bool = False,
+                   steps: int = SPARSE_STEPS) -> dict:
+    """``minibatch_lg``'s fixed-shape batch at full depth (4 layers, two
+    blocks): seeds are block rows 0..S-1, hop 1 draws f1 sources per seed,
+    hop 2 f2 per hop-1 source, uniform over the block's rows, as the
+    sampler's blocks are laid out.  Layers 3-4 must get zero gradients;
+    ``steps`` counted steps, after each of which their moments must still
+    be zero and their weights must have moved by weight decay alone."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.pna import PNA_SHAPES, REDUCED_SHAPES
+    from repro_torch.train import init_adamw, value_and_grad
+    from repro_torch.train.optimizer import schedule
+    arch = get_arch("pna")
+    spec = (REDUCED_SHAPES if reduced else PNA_SHAPES)["minibatch_lg"]
+    cfg = dataclasses.replace(arch.config(reduced, "minibatch_lg"),
+                              n_layers=4)
+    nb, (e2, e1), f1, f2 = (spec["block_nodes"], spec["hop_edges"],
+                            *spec["fanouts"])
+    seeds = spec["seeds"]
+    rng = np.random.default_rng(SPARSE_SEED)
+    src1 = rng.integers(0, nb, seeds * f1, dtype=np.int32)
+    src2 = rng.integers(0, nb, seeds * f1 * f2, dtype=np.int32)
+    arrays = {"src1": src1, "dst1": np.repeat(np.arange(seeds, dtype=np.int32),
+                                              f1),
+              "src2": src2, "dst2": np.repeat(src1, f2),
+              "seed_idx": np.arange(seeds, dtype=np.int32),
+              "labels": rng.integers(0, spec["classes"], seeds,
+                                     dtype=np.int32)}
+    if (len(arrays["src1"]), len(arrays["src2"])) != (e1, e2):
+        raise AssertionError("minibatch_lg's hop edges are not seeds x f1 "
+                             "and seeds x f1 x f2")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    batch["feats"] = torch.randn(
+        (nb, spec["d_feat"]), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SPARSE_SEED))
+    model = arch.init(cfg, torch.Generator(device=dev).manual_seed(
+        SPARSE_SEED), device=dev)
+    loss_fn = arch.loss_fn(cfg, "minibatch_lg", reduced=reduced)
+    _, grads = value_and_grad(loss_fn, model, batch)
+    unused = [f"layers.{i}.{w}" for i in (2, 3) for w in ("w_msg", "w_upd")]
+    for k, gr in grads.items():
+        if bool(gr.any()) == (k in unused):
+            raise AssertionError(f"minibatch_lg gradient {k}: zero should "
+                                 f"be exactly layers 3-4's ({unused})")
+    del grads
+    params = dict(model.named_parameters())
+    prev = {k: params[k].detach().clone() for k in unused}
+    worst = [0.0]
+
+    def decay_only(opt):
+        lr = schedule(arch.opt, opt.step)
+        for k in unused:
+            want = prev[k] - (prev[k] * arch.opt.weight_decay) * lr
+            now = params[k].detach()
+            if (opt.mu[k].any() or opt.nu[k].any() or torch.equal(now, prev[k])
+                    or not torch.allclose(now, want, rtol=1e-6, atol=0)):
+                raise AssertionError(f"minibatch_lg {k} moved by more than "
+                                     "weight decay")
+            worst[0] = max(worst[0], float((now - want).abs().max()))
+            prev[k] = now.clone()
+
+    mem0 = reset_peak(dev)
+    _, ms, losses, launches = counted_steps(
+        dev, arch.step_fn(cfg, "minibatch_lg", reduced=reduced), model,
+        init_adamw(model), batch, steps, "PNA minibatch_lg train",
+        check=decay_only)
+    rec = dict(block_nodes=nb, hop_edges=(e2, e1), seeds=seeds,
+               d_feat=spec["d_feat"], layers=cfg.n_layers,
+               d_hidden=cfg.d_hidden, steps=steps, **step_stats(ms),
+               **peak_memory(dev, mem0), losses=[round(v, 6) for v in losses],
+               layers_3_4_zero_grad=True,
+               layers_3_4_decay_max_abs_err=worst[0],
+               kernel_launches=launches)
+    log("train", arch="pna", shape="minibatch_lg", part="fixed-shape cell",
+        **rec)
+    return rec
+
+
+def ogb_parity(dev, reduced: bool = False) -> dict:
+    """``ogb_products``' model on a cut of its law (``OGB_CUT``: nodes,
+    edges; the padding shares of the full graph): the card's streamed,
+    checkpointed path with ``EDGE_CHUNK`` lowered so that 4 chunks run,
+    against CPU copies of the plain layer in fp32 and float64."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.pna import PNA_SHAPES, REDUCED_SHAPES
+    from repro_torch.models import gnn
+    arch = get_arch("pna")
+    spec = (REDUCED_SHAPES if reduced else PNA_SHAPES)["ogb_products"]
+    full = SPARSE_GRAPHS[reduced]["ogb_products"]
+    cfg = arch.config(reduced=reduced, shape="ogb_products")
+    n, e, chunk = OGB_CUT[reduced]
+    law = dict(real_nodes=n - round(n * (1 - full["real_nodes"]
+                                         / spec["n_nodes"])),
+               real_edges=e - round(e * (1 - full["real_edges"]
+                                         / spec["n_edges"])),
+               labelled=round(n * full["labelled"] / spec["n_nodes"]))
+    batch, _, _ = sparse_batch(dev, n, e, spec["d_feat"], spec["classes"],
+                               seed=SPARSE_SEED, **law)
+    model = arch.init(cfg, torch.Generator(device=dev).manual_seed(
+        SPARSE_SEED), device=dev)
+    before = gnn.EDGE_CHUNK
+    gnn.EDGE_CHUNK = chunk
+    try:
+        counters = zero_launches()
+        _, cpu_s = pna_step_parity(
+            dev, model, arch.loss_fn(cfg, "ogb_products", reduced=reduced),
+            batch, "sparse", "pna ogb_products cut", sparse=True, n_nodes=n,
+            n_edges=e, edge_chunk=chunk, chunks=-(-e // chunk), **law)
+        launches = check_no_launches(counters, "PNA ogb_products cut")
+    finally:
+        gnn.EDGE_CHUNK = before
+    return dict(n_nodes=n, n_edges=e, edge_chunk=chunk, cpu_s=cpu_s,
+                kernel_launches=launches, **law)
+
+
+def ogb_train(dev, reduced: bool = False, steps: int = OGB_STEPS) -> dict:
+    """``ogb_products`` at its full size: the graph of ``sparse_batch``
+    (data generation and the move to ``dev`` timed), a no-grad forward's
+    loss, one warm-up step (its loss, computed under the checkpoints,
+    within rtol 1e-5 of the no-grad one), ``steps`` counted steps: step
+    ms, peak memory, the losses, finite and falling."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.pna import PNA_SHAPES, REDUCED_SHAPES
+    from repro_torch.train import init_adamw
+    arch = get_arch("pna")
+    spec = (REDUCED_SHAPES if reduced else PNA_SHAPES)["ogb_products"]
+    cfg = arch.config(reduced=reduced, shape="ogb_products")
+    batch, host_s, move_s = sparse_batch(
+        dev, spec["n_nodes"], spec["n_edges"], spec["d_feat"],
+        spec["classes"], seed=SPARSE_SEED,
+        **SPARSE_GRAPHS[reduced]["ogb_products"])
+    model = arch.init(cfg, torch.Generator(device=dev).manual_seed(
+        SPARSE_SEED), device=dev)
+    loss_fn = arch.loss_fn(cfg, "ogb_products", reduced=reduced)
+    step = arch.step_fn(cfg, "ogb_products", reduced=reduced)
+    mem0 = reset_peak(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss_ng = float(loss_fn(model, batch))
+    fwd_s = time.perf_counter() - t0
+    opt = init_adamw(model)
+    t0 = time.perf_counter()
+    _, opt, loss1 = step(model, opt, batch)
+    sync(dev)
+    warm_s = time.perf_counter() - t0
+    loss1 = float(loss1)
+    if not abs(loss1 - loss_ng) <= 1e-5 * abs(loss_ng):
+        raise AssertionError(f"ogb_products step-1 loss {loss1} vs no-grad "
+                             f"forward {loss_ng}")
+    opt, ms, losses, launches = counted_steps(
+        dev, step, model, opt, batch, steps, "PNA ogb_products train")
+    if not losses[-1] < loss1:
+        raise AssertionError(f"ogb_products loss did not fall: {loss1}, "
+                             f"{losses}")
+    rec = dict(n_nodes=spec["n_nodes"], n_edges=spec["n_edges"],
+               d_feat=spec["d_feat"], layers=cfg.n_layers,
+               d_hidden=cfg.d_hidden, steps=steps,
+               data_host_s=round(host_s, 3), data_move_s=round(move_s, 3),
+               nograd_forward_s=round(fwd_s, 3), warmup_step_s=round(warm_s, 3),
+               loss_nograd=loss_ng, loss_step1=loss1,
+               step1_vs_nograd_rel_err=abs(loss1 - loss_ng) / abs(loss_ng),
+               step_p50_ms=round(float(np.percentile(ms, 50)), 3),
+               step_max_ms=round(float(max(ms)), 3),
+               **peak_memory(dev, mem0), losses=[round(v, 6) for v in losses],
+               kernel_launches=launches)
+    log("train", arch="pna", shape="ogb_products", **rec)
+    return rec
+
+
+def pna_sparse_phases(dev, reduced: bool = False) -> dict:
+    """The ``train`` phase's ``pna_sparse`` part: ``full_graph_sm`` (Cora),
+    ``minibatch_lg`` (the sampler at Reddit scale, then the cell's
+    fixed-shape batch at full depth), ``ogb_products`` (the parity cut,
+    then the full graph); none of the port's kernels launches."""
+    import torch
+    t0 = time.perf_counter()
+    out = dict(full_graph_sm=sparse_cell_train(dev, "full_graph_sm",
+                                               reduced),
+               sampler=reddit_sampler(dev, reduced),
+               minibatch_lg=minibatch_cell(dev, reduced),
+               ogb_parity=ogb_parity(dev, reduced))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["ogb_products"] = ogb_train(dev, reduced)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    out["kernel_launches"] = {
+        name: sum(r["kernel_launches"][name] for r in out.values()
+                  if isinstance(r, dict))
+        for name in out["full_graph_sm"]["kernel_launches"]}
+    log("train", part="pna_sparse", seconds=f"{out['seconds']:.1f}",
+        kernel_launches=out["kernel_launches"])
+    return out
 
 
 def all_launchers() -> list:
@@ -3578,11 +4036,13 @@ def main(argv=None) -> int:
     train = train_phases(dev, model)
     del model
     torch.cuda.empty_cache()
+    # ---- train, pna_sparse: PNA's sparse and minibatch cells ----
+    sparse = pna_sparse_phases(dev)
     records.append(pna_phases(dev, flush, args.profile, base, floor_ms))
     for rcd in records:   # the train path runs none of the port's kernels
-        rcd["train_launches"] = (
-            train["two_tower"]["kernel_launches"][rcd["name"] + "_cuda"]
-            + train["pna"]["kernel_launches"][rcd["name"] + "_cuda"])
+        rcd["train_launches"] = sum(
+            part["kernel_launches"][rcd["name"] + "_cuda"]
+            for part in (train["two_tower"], train["pna"], sparse))
 
     # ---- engine: HCPS serving at LAION-1M scale, four shards ----
     t0 = time.perf_counter()

@@ -7,13 +7,17 @@ Shapes (as in the reference):
   ogb_products   n=2,449,029 e=61,859,140 d_feat=100 (full-batch-large)
   molecule       n=30 e=64 batch=128 (dense-batched; fused aggregator)
 
-Ported here: the model, its parameters, the dense-batched inference
-``repro_torch.models.gnn.forward_dense`` (the path that reaches the
-``pna_aggregate`` kernel) and the ``molecule`` train step (``loss_dense``
-with ``use_kernel=False``, as the reference trains, then one AdamW step).
-The sparse and minibatch regimes wait for ROADMAP.md queue 1 item 5b:
-their ``step_fn``, ``loss_fn`` and ``abstract_inputs`` raise
-``NotImplementedError``.
+Each cell's train step is its regime's loss, its gradients, then one
+AdamW step, as in the reference:
+
+* ``molecule`` (dense): ``loss_dense`` with ``use_kernel=False``, the plain
+  aggregator, as the reference trains;
+* ``full_graph_sm``, ``ogb_products`` (sparse): ``loss_sparse`` over the
+  whole edge list, its layers through ``SegmentAggregate``;
+* ``minibatch_lg``: ``forward_minibatch`` over two sampled blocks (hop 2,
+  then hop 1), the cross-entropy of the seeds' rows.  With 4 layers and 2
+  blocks, layers 3-4 take no part in the loss: their gradients are zero
+  and AdamW only decays them, as in the reference.
 """
 from __future__ import annotations
 
@@ -22,7 +26,10 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.device import DeviceLike
-from repro_torch.models.gnn import PNA, PNAConfig, init_pna, loss_dense
+from repro_torch.models.common import cross_entropy
+from repro_torch.models.gnn import (PNA, PNAConfig, forward_minibatch,
+                                    init_pna, loss_dense, loss_sparse,
+                                    take_rows)
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.optimizer import AdamWConfig, adamw_specs
 
@@ -61,11 +68,6 @@ REDUCED_SHAPES: Dict[str, Dict] = {
                      d_feat=8, classes=2),
 }
 
-_NOT_PORTED = ("PNA's {regime} regime ({shape}) is not ported yet "
-               "(forward_sparse, forward_minibatch and loss_sparse: "
-               "ROADMAP.md queue 1 item 5b); the molecule cell trains")
-
-
 class PNAArch:
     family = "gnn"
     name = "pna"
@@ -92,22 +94,28 @@ class PNAArch:
         """Parameter name -> :class:`TensorSpec`, from :meth:`module`."""
         return param_specs(self.module(cfg))
 
-    def _spec(self, shape: str, reduced: bool) -> Dict:
-        """The cell's shape; raises for the regimes not yet ported."""
-        spec = (REDUCED_SHAPES if reduced else PNA_SHAPES)[shape]
-        if spec["regime"] != "dense":
-            raise NotImplementedError(_NOT_PORTED.format(
-                regime=spec["regime"], shape=shape))
-        return spec
-
     def loss_fn(self, cfg, shape: str, reduced: bool = False):
         """``loss(model, batch)``, the scalar the train step
-        differentiates: ``loss_dense`` with the plain aggregator."""
-        self._spec(shape, reduced)
-
-        def loss(model: PNA, batch):
-            return loss_dense(cfg, model, batch["feats"], batch["adj"],
-                              batch["labels"], use_kernel=False)
+        differentiates, for the cell's regime."""
+        regime = (REDUCED_SHAPES if reduced else PNA_SHAPES)[shape]["regime"]
+        if regime == "dense":
+            def loss(model: PNA, batch):
+                return loss_dense(cfg, model, batch["feats"], batch["adj"],
+                                  batch["labels"], use_kernel=False)
+        elif regime == "sparse":
+            def loss(model: PNA, batch):
+                return loss_sparse(cfg, model, batch["feats"], batch["src"],
+                                   batch["dst"], batch["labels"],
+                                   batch["label_mask"])
+        else:
+            def loss(model: PNA, batch):
+                logits = forward_minibatch(
+                    cfg, model, batch["feats"],
+                    [(batch["src2"], batch["dst2"]),
+                     (batch["src1"], batch["dst1"])],
+                    batch["feats"].shape[0])
+                return cross_entropy(take_rows(logits, batch["seed_idx"]),
+                                     batch["labels"])
         return loss
 
     def step_fn(self, cfg, shape: str, reduced: bool = False):
@@ -117,12 +125,31 @@ class PNAArch:
 
     def abstract_inputs(self, cfg, shape: str, reduced: bool = False):
         """(parameter specs, AdamW state specs, batch specs) of a cell."""
-        spec = self._spec(shape, reduced)
+        spec = (REDUCED_SHAPES if reduced else PNA_SHAPES)[shape]
         params = self.abstract_params(cfg)
-        b, nn = spec["batch"], spec["n_nodes"]
-        batch = {"feats": TensorSpec((b, nn, spec["d_feat"]), torch.float32),
-                 "adj": TensorSpec((b, nn, nn), torch.float32),
-                 "labels": TensorSpec((b,), torch.int32)}
+        f32, i32 = torch.float32, torch.int32
+        if spec["regime"] == "sparse":
+            n, e = spec["n_nodes"], spec["n_edges"]
+            batch = {"feats": TensorSpec((n, spec["d_feat"]), f32),
+                     "src": TensorSpec((e,), i32),
+                     "dst": TensorSpec((e,), i32),
+                     "labels": TensorSpec((n,), i32),
+                     "label_mask": TensorSpec((n,), f32)}
+        elif spec["regime"] == "dense":
+            b, nn = spec["batch"], spec["n_nodes"]
+            batch = {"feats": TensorSpec((b, nn, spec["d_feat"]), f32),
+                     "adj": TensorSpec((b, nn, nn), f32),
+                     "labels": TensorSpec((b,), i32)}
+        else:
+            nb = spec["block_nodes"]
+            e2, e1 = spec["hop_edges"]
+            batch = {"feats": TensorSpec((nb, spec["d_feat"]), f32),
+                     "src1": TensorSpec((e1,), i32),
+                     "dst1": TensorSpec((e1,), i32),
+                     "src2": TensorSpec((e2,), i32),
+                     "dst2": TensorSpec((e2,), i32),
+                     "seed_idx": TensorSpec((spec["seeds"],), i32),
+                     "labels": TensorSpec((spec["seeds"],), i32)}
         return (params, adamw_specs(params), batch)
 
 

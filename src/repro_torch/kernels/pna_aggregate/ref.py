@@ -53,19 +53,27 @@ def pna_aggregate_ref(adj: Tensor, feats: Tensor) -> Tensor:
 
 def pna_aggregate_segment_ref(messages: Tensor, dst: Tensor,
                               num_nodes: int) -> Tensor:
-    """Sparse form: messages (E, F) scattered to dst (E,) -> (N, 4F)."""
+    """Sparse form: messages (E, F) scattered to dst (E,) -> (N, 4F).  As
+    ``jax.ops.segment_*``, an edge whose ``dst`` lies outside [0, N)
+    (negatives included) is dropped: it lands on a spare row N that is
+    cut off at the end."""
     e, f = messages.shape
     idx = dst.long()
-    cnt = messages.new_zeros(num_nodes).index_add_(
-        0, idx, messages.new_ones(e))[:, None]
-    s = messages.new_zeros((num_nodes, f)).index_add_(0, idx, messages)
-    ssq = messages.new_zeros((num_nodes, f)).index_add_(
+    idx = torch.where((idx >= 0) & (idx < num_nodes), idx, num_nodes)
+    rows = num_nodes + 1
+    cnt = messages.new_zeros(rows).index_add_(
+        0, idx, messages.new_ones(e))[:num_nodes, None]
+    s = messages.new_zeros((rows, f)).index_add_(0, idx, messages)
+    ssq = messages.new_zeros((rows, f)).index_add_(
         0, idx, messages * messages)
-    mean, std = _moments(cnt, s, ssq)
+    mean, std = _moments(cnt, s[:num_nodes], ssq[:num_nodes])
     idx2 = idx[:, None].expand(e, f)
-    zeros = messages.new_zeros((num_nodes, f))
-    hmax = zeros.scatter_reduce(0, idx2, messages, "amax", include_self=False)
-    hmin = zeros.scatter_reduce(0, idx2, messages, "amin", include_self=False)
+    # from -inf / +inf, not from zeros with include_self=False: torch's
+    # backward counts a base value equal to the result as one more tie
+    hmax = messages.new_full((rows, f), float("-inf")).scatter_reduce(
+        0, idx2, messages, "amax")[:num_nodes]
+    hmin = messages.new_full((rows, f), float("inf")).scatter_reduce(
+        0, idx2, messages, "amin")[:num_nodes]
     has = cnt > 0
     hmax = torch.where(has, hmax, 0.0)
     hmin = torch.where(has, hmin, 0.0)

@@ -60,12 +60,15 @@ def _split(batch, n: int, i: int):
 
 def value_and_grad(loss_fn: Callable, params, batch):
     """``(loss, {name: grad})`` of ``loss_fn(params, batch)`` over every
-    parameter, grad turned on for the call only."""
+    parameter, grad turned on for the call only.  A parameter the loss does
+    not use gets a zero gradient, as under ``jax.value_and_grad`` (PNA's
+    minibatch step leaves its layers beyond the sampled blocks out)."""
     named = named_tensors(params)
     leaves = list(named.values())
     with torch.enable_grad(), trainable(leaves):
         loss = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
     return loss.detach(), dict(zip(named, grads))
 
 

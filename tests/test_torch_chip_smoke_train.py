@@ -4,8 +4,10 @@ The phase's functions take any device: on the CPU they run the two-tower
 ``train_batch`` step on a REDUCED model (its 32-row batch drawn from the
 phase's Zipf law), held to a CPU copy of the rows it touches and to that
 copy's float64 run; the PNA ``molecule`` step at its REDUCED shape; a
-checkpoint round trip; and the launcher with a resume.  No kernel
-launches on the train path.  Tolerances: as the phase's own checks (loss
+checkpoint round trip; the launcher with a resume; and the ``pna_sparse``
+part (``full_graph_sm``, the sampler and ``minibatch_lg``'s fixed-shape
+batch, ``ogb_products``' parity cut and its graph) at REDUCED sizes.  No
+kernel launches on the train path.  Tolerances: as the phase's own checks (loss
 rtol 1e-5; gradients within 4x the CPU copy's own fp32 distance to
 float64, or 1e-5 relative L2; one ``adamw_update`` from the same
 gradients within rtol 1e-5 and 1e-6 of each tensor's largest magnitude).
@@ -87,6 +89,70 @@ def test_pna_train_runs_on_cpu_tensors(smoke, capsys):
     assert len(rec["losses"]) == 3 and int(opt.step) == 4
     assert set(rec["kernel_launches"].values()) == {0}
     assert "[parity] path=pna molecule train step 1" in capsys.readouterr().out
+
+
+def test_sparse_batch_law(smoke):
+    batch, _, _ = smoke.sparse_batch(CPU, n=50, e=300, d_feat=4, classes=3,
+                                     real_nodes=45, real_edges=280,
+                                     labelled=12, seed=1)
+    src, dst = batch["src"].numpy(), batch["dst"].numpy()
+    assert src.dtype == dst.dtype == np.int32
+    assert (dst[280:] == -1).all() and (src[280:] == 0).all()
+    assert 0 <= dst[:280].min() and dst[:280].max() < 45
+    assert 0 <= src[:280].min() and src[:280].max() < 45
+    mask = batch["label_mask"].numpy()
+    assert mask.sum() == 12 and not mask[45:].any()
+    assert not batch["feats"][45:].any() and batch["feats"][:45].all()
+    assert batch["labels"].max() < 3
+    again, _, _ = smoke.sparse_batch(CPU, n=50, e=300, d_feat=4, classes=3,
+                                     real_nodes=45, real_edges=280,
+                                     labelled=12, seed=1)
+    for k in batch:
+        assert torch.equal(batch[k], again[k])
+
+
+@pytest.mark.parametrize("part", ["full_graph_sm", "sampler", "minibatch_lg",
+                                  "ogb_parity", "ogb_products"])
+def test_pna_sparse_part_runs_on_cpu_tensors(smoke, capsys, part):
+    run = {"full_graph_sm": lambda: smoke.sparse_cell_train(
+               CPU, "full_graph_sm", reduced=True, steps=3),
+           "sampler": lambda: smoke.reddit_sampler(CPU, reduced=True),
+           "minibatch_lg": lambda: smoke.minibatch_cell(CPU, reduced=True,
+                                                        steps=3),
+           "ogb_parity": lambda: smoke.ogb_parity(CPU, reduced=True),
+           "ogb_products": lambda: smoke.ogb_train(CPU, reduced=True,
+                                                   steps=2)}[part]
+    rec = run()
+    assert set(rec["kernel_launches"].values()) == {0}
+    log = capsys.readouterr().out
+    if part == "full_graph_sm":
+        assert (rec["n_nodes"], rec["n_edges"], len(rec["losses"])) == (
+            200, 800, 3)
+        assert "[parity] path=pna full_graph_sm train step 1" in log
+        assert "card_fp64_vs_cpu_fp64=" in log
+    elif part == "sampler":
+        # hop 1: 3 per seed; hop 2: 2 per distinct hop-1 source
+        e2, e1 = rec["hop_edges"]
+        assert e1 == 32 * 3 and e2 % 2 == 0 and e2 <= e1 * 2
+        assert rec["seed_rows"] == 32 and rec["block_nodes"] <= 32 * 10
+        assert "[parity] path=pna minibatch_lg sampled block" in log
+    elif part == "minibatch_lg":
+        assert rec["layers"] == 4 and rec["layers_3_4_zero_grad"]
+        assert rec["hop_edges"] == (48, 24) and len(rec["losses"]) == 3
+    elif part == "ogb_parity":
+        assert rec["n_edges"] == 400 and rec["edge_chunk"] == 100
+        assert "chunks=4" in log
+    else:
+        assert rec["step1_vs_nograd_rel_err"] <= 1e-5
+        assert rec["losses"][-1] < rec["loss_step1"]
+
+
+def test_pna_sparse_phases_compose_on_cpu(smoke, capsys):
+    out = smoke.pna_sparse_phases(CPU, reduced=True)
+    assert set(out["kernel_launches"].values()) == {0}
+    assert {"full_graph_sm", "sampler", "minibatch_lg", "ogb_parity",
+            "ogb_products"} <= set(out)
+    assert "[train] part=pna_sparse seconds=" in capsys.readouterr().out
 
 
 def test_grad_parity_rejects_a_wrong_gradient(smoke):

@@ -115,16 +115,6 @@ def test_init_follows_the_reference_law():
     assert torch.equal(model.dec, again.dec)
 
 
-@pytest.mark.parametrize("method", ["step_fn", "abstract_inputs"])
-def test_train_steps_are_not_ported(method):
-    # the molecule (dense) cell trains now (tests/test_torch_train_steps.py);
-    # the sparse and minibatch regimes wait for ROADMAP queue 1 item 5b
-    for shape in ("full_graph_sm", "minibatch_lg", "ogb_products"):
-        cfg = ARCH.config(shape=shape)
-        with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
-            getattr(ARCH, method)(cfg, shape)
-
-
 def test_card_matches_cpu(cuda_device):
     cfg = ARCH.config(shape="molecule")
     model = init_pna(cfg, torch.Generator(device=cuda_device).manual_seed(0),

@@ -1,6 +1,6 @@
 """The train steps of the two ported arches and the training launcher
 against the JAX reference: twins of ``test_recsys_train_step`` (two-tower)
-and ``test_pna_shapes`` (``molecule``) of ``tests/test_models_smoke.py``;
+and ``test_pna_shapes`` (every PNA cell) of ``tests/test_models_smoke.py``;
 the reference's parameters and AdamW state carried across
 (``convert.adamw_state_from_arrays``), so a port step continues a
 reference step; PNA's ``loss_dense`` (the plain aggregator, as the
@@ -14,7 +14,8 @@ after one ``adamw_update`` from the reference's own gradients within rtol
 1e-6 and an atol of 1e-6 times the tensor's largest magnitude (a moment
 that nearly cancels its earlier value keeps only absolute accuracy); the
 launcher's first losses, each after steps whose gradients each package
-computes itself, within rtol 1e-4.
+computes itself, within rtol 1e-4 (two-tower) and 1e-5 (PNA
+``full_graph_sm``).
 """
 import functools
 
@@ -178,14 +179,22 @@ def test_pna_shapes():
 
 @pytest.mark.parametrize("shape", ["full_graph_sm", "minibatch_lg",
                                    "ogb_products"])
-def test_pna_other_regimes_name_5b(shape):
+def test_pna_sparse_and_minibatch_shapes(shape):
+    """The reference's ``test_pna_shapes`` for the sparse and minibatch
+    cells: one step of the arch at its REDUCED shape on random batches
+    (integers in [0, 2)), finite loss and parameters."""
     arch = get_arch("pna")
     cfg = arch.config(reduced=True, shape=shape)
-    for call in (lambda: arch.step_fn(cfg, shape, reduced=True),
-                 lambda: arch.loss_fn(cfg, shape, reduced=True),
-                 lambda: arch.abstract_inputs(cfg, shape, reduced=True)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
-            call()
+    model = arch.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    opt = init_adamw(model)
+    _, _, batch_s = arch.abstract_inputs(cfg, shape, reduced=True)
+    batch = _materialize(batch_s, seed=0, int_hi=2)
+    before = {k: p.clone() for k, p in model.named_parameters()}
+    _, opt2, loss = arch.step_fn(cfg, shape, reduced=True)(model, opt, batch)
+    assert np.isfinite(float(loss)), f"pna/{shape} loss {loss}"
+    assert _finite(model) and int(opt2.step) == 1
+    assert all(not torch.equal(p, before[k])
+               for k, p in model.named_parameters())
 
 
 @pytest.mark.parametrize("b", [4, 32])
@@ -260,10 +269,10 @@ def test_launcher_batches_equal_reference():
             np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jb[k]))
 
 
-def _reference_launcher_losses(steps):
+def _reference_launcher_losses(arch_id, steps):
     """The reference launcher's loop (``repro.launch.train.main``) logging
     every step: its probe loss, its data, its AdamW."""
-    arch = jax_get_arch("two-tower-retrieval")
+    arch = jax_get_arch(arch_id)
     shape = jlaunch._train_shape(arch)
     cfg = arch.config(reduced=True, shape=shape)
     params = arch.init(cfg, KEY)
@@ -282,15 +291,19 @@ def _reference_launcher_losses(steps):
     return params, res["losses"]
 
 
-def test_launcher_first_losses_equal_reference():
-    jparams, want = _reference_launcher_losses(5)
-    cfg = get_arch("two-tower-retrieval").config(reduced=True)
-    res = launch.train("two-tower-retrieval", steps=5, device="cpu",
-                       model=port_two_tower(jparams, cfg), log_every=1)
+@pytest.mark.parametrize("arch_id,port,rtol", [
+    ("two-tower-retrieval", port_two_tower, 1e-4),
+    ("pna", port_pna, 1e-5)])
+def test_launcher_first_losses_equal_reference(arch_id, port, rtol):
+    jparams, want = _reference_launcher_losses(arch_id, 5)
+    arch = get_arch(arch_id)
+    cfg = arch.config(reduced=True, shape=launch._train_shape(arch))
+    res = launch.train(arch_id, steps=5, device="cpu",
+                       model=port(jparams, cfg), log_every=1)
     assert [s for s, _ in res["losses"]] == [s for s, _ in want] == list(
         range(5))
     np.testing.assert_allclose([v for _, v in res["losses"]],
-                               [v for _, v in want], rtol=1e-4)
+                               [v for _, v in want], rtol=rtol)
 
 
 def test_launcher_resumes_and_learns(tmp_path, capsys):
@@ -307,9 +320,19 @@ def test_launcher_resumes_and_learns(tmp_path, capsys):
     assert _finite(resumed["params"])
 
 
-def test_launcher_pna_names_5b():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
-        launch.main(["--arch", "pna", "--steps", "2", "--device", "cpu"])
+def test_launcher_pna_resumes_and_logs_finite_losses(tmp_path, capsys):
+    d = str(tmp_path / "ck")
+    argv = ["--arch", "pna", "--device", "cpu", "--ckpt-dir", d,
+            "--ckpt-every", "4"]
+    first = launch.main(argv + ["--steps", "8"])
+    resumed = launch.main(argv + ["--steps", "12"])
+    assert first["steps"] == 8 and resumed["steps"] == 4
+    # logged every 10 steps and at the last: the resumed run starts at 8
+    assert [s for s, _ in resumed["losses"]] == [10, 11]
+    losses = [v for _, v in first["losses"] + resumed["losses"]]
+    assert np.isfinite(losses).all()
+    assert "pna/full_graph_sm: 8 steps" in capsys.readouterr().out
+    assert _finite(resumed["params"])
 
 
 def test_launcher_arch_choices():
