@@ -8,7 +8,8 @@
                             # embedding_bag, the train steps (two-tower
                             # train_batch at B = 65,536, PNA molecule,
                             # checkpoints, the launcher; PNA full_graph_sm,
-                            # minibatch_lg, ogb_products), PNA molecule
+                            # minibatch_lg, ogb_products; DIEN, SASRec and
+                            # DCN-v2, every cell at FULL), PNA molecule
                             # inference, the
                             # sharded HCPS serving engine (n = 2^20) and
                             # the distributed paths on a one-rank NCCL
@@ -87,7 +88,7 @@ Phases, each printed on its own line:
            time to index, index bytes, recall@10 of 64 unfiltered queries
            against their exact top-10 over those rows, whether TTI(ACORN-1)
            < TTI(HNSW) < TTI(ACORN-γ) (not gated); then each variant over
-           256 rows on the card and on a CPU copy: neighbour lists,
+           128 rows on the card and on a CPU copy: neighbour lists,
            counts and entry point identical (a diverging insert must be
            explained by a near tie).
   retrieve the two-tower arch's ``retrieval_cand`` step at its FULL width
@@ -129,12 +130,15 @@ Phases, each printed on its own line:
            counted steps through the arch's step (p50 / max ms,
            examples/s, peak memory, the losses, finite), 2 steps timed in
            parts (forward+backward, ``adamw_update``); the first 4,096 rows
-           against a CPU copy of the rows they touch (loss within 1e-5,
-           every gradient within 4x the copy's own fp32 distance to its
-           float64 run or 1e-5 relative L2, one ``adamw_update`` from the
-           same gradients within rtol 1e-5, no gradient outside the
-           touched rows) and the blocked loss against the plain one on the
-           card.  PNA ``molecule`` (4 layers, d 75, 128 graphs of 30
+           against a CPU copy of the rows they touch (``step1_parity``:
+           the copy runs on the card's ReLU branch, each unit flipped
+           against float64 within 1e-5 of its call's largest input; loss
+           within 1e-5; the card's path in float64 within 1e-9 of the
+           CPU's float64 copy; every fp32 gradient within 4x the copy's
+           own fp32 distance to its float64 run or 1e-5 relative L2; one
+           ``adamw_update`` from the same gradients within rtol 1e-5, no
+           gradient outside the touched rows) and the blocked loss against
+           the plain one on the card.  PNA ``molecule`` (4 layers, d 75, 128 graphs of 30
            nodes): step 1 against a CPU copy as above, then 20 counted
            steps.  Neither path may launch any of the port's kernels
            (``train_launches`` in the record).  A sync and an async
@@ -162,7 +166,24 @@ Phases, each printed on its own line:
            then at full size (2,449,408 nodes, 61,859,328 edges, 196,615
            labelled): a no-grad forward, a warm-up step whose loss must
            equal it within 1e-5, 5 counted steps (finite, falling), peak
-           memory and the data's host and transfer times.
+           memory and the data's host and transfer times.  Then the
+           ``recsys`` part (``recsys_phases``): DIEN, SASRec and DCN-v2 at
+           FULL width, weights from a seeded generator on the card, the
+           traffic of each paper's data from a numpy seed (Zipf(1.1)
+           items or ids; DIEN histories of 1-100 steps, 100 for the
+           retrieval user, SASRec sequences of 2-50 left-padded, DCN-v2's
+           13 dense and 26 sparse Criteo features), TF32 off.  Per arch:
+           ``train_batch`` (B = 65,536) with step 1 on its first 4,096
+           rows against CPU copies as two-tower's (``step1_parity``) and
+           the blocked loss (DIEN's ``GRUScan``, SASRec's ``SampledLogits``)
+           against its plain version on the card, then one warm-up and 5
+           counted steps (losses finite and not rising); ``serve_p99``
+           (B = 512, 10 calls) and ``serve_bulk`` (B = 262,144, 3 calls)
+           with 64 rows against a CPU copy (rtol 1e-5, atol 1e-6);
+           ``retrieval_cand`` (2^20 candidates, 2 calls after a warm-up)
+           with 1,024 scores against a CPU copy, and for DCN-v2
+           ``retrieve`` and ``retrieve_opt`` agreeing.  No kernel launches
+           (``recsys_launches`` in the record).
   pna      PNA (``get_arch("pna")``, ``molecule`` shape: 4 layers,
            d_in 16, d_hidden 75, 2 classes) with random weights from a
            seed: ``pna_aggregate`` against its plain version at
@@ -186,7 +207,7 @@ Phases, each printed on its own line:
            bytes.  gather_distance (d = 512, l2 and ip, 10 % -1 ids) and
            neighbor_expand (compress and two_hop, m = 16, m_beta = 32) held
            against their plain versions on shard 0's graph and timed
-           (``other_shapes`` entries with ``phase: engine``).  1,024
+           (``other_shapes`` entries with ``phase: engine``).  512
            ``contains`` queries through ``engine.serve`` in batches of 32
            after one warm-up batch, counters zeroed just before and read
            just after (``engine_launches`` of both records): QPS, batch
@@ -197,7 +218,7 @@ Phases, each printed on its own line:
            queries of the closed loop and of each kind forced onto the
            graph route at ef 64 and 256, with the generator clusters their
            exact top-10 span (``graph_forced``); an open loop of
-           256 requests of 4 queries through ``ServingRuntime`` at seeded
+           128 requests of 4 queries through ``ServingRuntime`` at seeded
            Poisson arrivals, 50 % of the closed loop's QPS (sustained QPS,
            p50 / p99, shed, dispatches, batch sizes; every served query's
            ids held to the closed loop's, near ties counted); an overload
@@ -346,7 +367,9 @@ PNA_EDGE_CASES = [
 ENGINE_N, ENGINE_D, ENGINE_SHARDS = 1 << 20, 512, 4
 ENGINE_M, ENGINE_GAMMA, ENGINE_M_BETA, ENGINE_EF_SEARCH = 16, 12, 32, 96
 ENGINE_BATCH, ENGINE_K = 32, 10
-ENGINE_CLOSED = 1024       # `contains` queries, correlation none, seed 1
+# `contains` queries, correlation none, seed 1 (cut from 1,024 to fit the
+# run's time; the open loop serves a quarter as many requests of 4)
+ENGINE_CLOSED = 512
 ENGINE_KIND_QUERIES = 64   # each of ENGINE_KINDS, seed 2
 ENGINE_KINDS = (("between", "none"), ("contains+between", "none"),
                 ("regex", "none"), ("contains", "pos"), ("contains", "neg"))
@@ -372,12 +395,13 @@ RECALL_TARGET = 0.9
 # ACORN-1 stays near 0.2-0.3 here in both packages)
 BASE_RECALL_FLOOR = 0.5
 # Table 4: time to index of the incremental builder (sequential inserts,
-# host-driven); N_INC is cut to fit the run's time
-N_INC = 2048
+# host-driven); N_INC (was 2,048) and INC_PREFIX (was 256) are cut to fit
+# the run's time
+N_INC = 1024
 INC_VARIANTS = ("hnsw", "acorn-1", "acorn-gamma")
 INC_EFC = 40                       # ef_build: 40; ACORN-γ 40·γ = 480
 INC_QUERIES = 64
-INC_PREFIX = 256                   # rows built on the card and on the CPU
+INC_PREFIX = 128                   # rows built on the card and on the CPU
 
 # neighbor_expand's edge cases, the same as CARD_CASES in
 # tests/test_torch_neighbor_expand.py (case i is drawn with seed i by
@@ -2860,6 +2884,19 @@ LAUNCHER_STEPS = (20, 30)   # the launcher's run, then its resume to 30
 # when the CPU copy's own fp32 rounding (against float64) is below it
 GRAD_REL_FLOOR = 1e-5
 GRAD_NOISE_FACTOR = 4.0
+# Step 1 of the recsys arches (two-tower and the recsys part) on a CPU
+# copy.  A ReLU input within fp32 rounding of 0 may land on the other side
+# on the card and then moves whole gradient rows: on an NVIDIA H100 80GB
+# HBM3 at 700.00 W one unit of two-tower's first user-tower layer put its
+# user_emb and first-layer gradients 1.9e-3 (relative L2) from the CPU
+# copy's, where the copy stood 1.6e-6 from float64.  So the CPU copies take
+# the card's ReLU branch (``relu_branch``), every unit where that branch
+# differs from float64's must have a float64 input within RELU_FLIP_TOL of
+# its call's largest |input|, and the gradients keep GRAD_REL_FLOOR.  The
+# card's path also runs in float64, held to the CPU float64 copy within
+# RECSYS_FP64_TOL.
+RELU_FLIP_TOL = 1e-5
+RECSYS_FP64_TOL = 1e-9
 
 
 def zipf_batch(cfg, b: int, seed: int) -> dict:
@@ -2949,8 +2986,12 @@ def update_parity(model, state, cpu_model, cpu_state, rows: dict,
             want = cpu[part][k].detach()
             atol = 1e-6 * float(want.abs().max())
             if not torch.allclose(got, want, rtol=1e-5, atol=atol):
-                raise AssertionError(f"{what}: {part} {k} after adamw_update "
-                                     "differs card vs CPU")
+                over = (got - want).abs() - 1e-5 * want.abs()
+                i = int(over.argmax())
+                raise AssertionError(
+                    f"{what}: {part} {k} after adamw_update differs card vs "
+                    f"CPU: {float(got.flatten()[i])} vs "
+                    f"{float(want.flatten()[i])} (atol {atol:.3g})")
             worst = max(worst, float((got - want).abs().max()))
     if int(state.step) != int(cpu_state.step):
         raise AssertionError(f"{what}: step counts differ")
@@ -2973,36 +3014,35 @@ def check_no_launches(counters, what: str) -> dict:
     return launches
 
 
-def two_tower_cpu_copy(model, cfg, batch: dict, dtype):
-    """A CPU copy of ``model`` holding only the table rows ``batch``
-    touches (unique ids, remapped), in ``dtype``: (copy, its config, its
-    batch, {table: card rows})."""
-    import dataclasses
+def relu_branch(card=None, seen=None):
+    """A ``TorchFunctionMode`` over ``torch.relu``: each call's input is
+    appended to ``seen`` (when given); with ``card``, the inputs of a run
+    on the card call by call, the i-th call takes the card's branch: its
+    input where ``card[i] > 0`` and 0 elsewhere, the gradient likewise."""
     import torch
-    from repro_torch.models.recsys import (TwoTower, TwoTowerConfig,
-                                           set_two_tower_params)
-    users = torch.cat([batch["user_id"], batch["user_feats"].reshape(-1)])
-    u_rows = users.unique()
-    i_rows = batch["item_id"].unique()
-    cpu_cfg = dataclasses.replace(cfg, n_users=len(u_rows),
-                                  n_items=len(i_rows), dtype=dtype)
+    from torch.overrides import TorchFunctionMode
+    relus = (torch.relu, torch.nn.functional.relu, torch.Tensor.relu)
 
-    def remap(ids, rows):
-        return torch.searchsorted(rows, ids).to(torch.int32).cpu()
+    class Branch(TorchFunctionMode):
+        calls = 0
 
-    cpu_batch = {"user_id": remap(batch["user_id"], u_rows),
-                 "user_feats": remap(batch["user_feats"], u_rows),
-                 "item_id": remap(batch["item_id"], i_rows),
-                 "logq": batch["logq"].cpu().to(dtype)}
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func not in relus:
+                return func(*args, **(kwargs or {}))
+            x = args[0]
+            if seen is not None:
+                seen.append(x.detach().clone())
+            if card is None:
+                return func(*args, **(kwargs or {}))
+            z = card[self.calls]
+            self.calls += 1
+            if z.shape != x.shape:
+                raise AssertionError(f"ReLU call {self.calls}: input "
+                                     f"{tuple(x.shape)}, the card's "
+                                     f"{tuple(z.shape)}")
+            return torch.where((z > 0).to(x.device), x, x.new_zeros(()))
 
-    def c(t):
-        return t.detach().cpu().to(dtype).clone()
-
-    towers = [[(c(lin.weight), c(lin.bias)) for lin in tower]
-              for tower in (model.user_tower, model.item_tower)]
-    cpu = set_two_tower_params(TwoTower(cpu_cfg), c(model.user_emb[u_rows]),
-                               c(model.item_emb[i_rows]), towers)
-    return cpu, cpu_cfg, cpu_batch, {"user_emb": u_rows, "item_emb": i_rows}
+    return Branch()
 
 
 def two_tower_train(dev, model, cfg, b: int, steps: int = TRAIN_STEPS,
@@ -3012,15 +3052,13 @@ def two_tower_train(dev, model, cfg, b: int, steps: int = TRAIN_STEPS,
     ``steps`` counted steps through the arch's step (step ms, examples/s,
     peak memory, the loss of each step, which must be finite), ``split``
     steps timed in their parts, then the first ``parity_rows`` rows of the
-    batch against a CPU copy of the rows they touch (loss, gradients, one
-    ``adamw_update`` from the same gradients) and the blocked loss against
-    the plain one on ``dev``."""
+    batch against a CPU copy of the rows they touch (:func:`step1_parity`)
+    and the blocked loss against the plain one on ``dev``."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.recsys import in_batch_softmax, \
         in_batch_softmax_ref
     from repro_torch.train import adamw_update, init_adamw, value_and_grad
-    from repro_torch.train.optimizer import AdamWState
 
     arch = get_arch("two-tower-retrieval")
     step = arch.step_fn(cfg, "train_batch")
@@ -3075,39 +3113,8 @@ def two_tower_train(dev, model, cfg, b: int, steps: int = TRAIN_STEPS,
 
     # parity: the first rows on a CPU copy of the rows they touch
     sub = {k: v[:parity_rows] for k, v in batch.items()}
-    loss_c, grads_c = value_and_grad(loss_fn, model, sub)
-    copies = {}
-    for dtype in (torch.float32, torch.float64):
-        cpu, cpu_cfg, cpu_batch, rows = two_tower_cpu_copy(model, cfg, sub,
-                                                          dtype)
-        loss_h, grads_h = value_and_grad(
-            arch.loss_fn(cpu_cfg, "train_batch"), cpu, cpu_batch)
-        copies[dtype] = (cpu, float(loss_h), grads_h)
-    cpu, loss_h, grads_h = copies[torch.float32]
-    loss_64, grads_64 = copies[torch.float64][1:]
-    if not abs(float(loss_c) - loss_h) <= 1e-5 * abs(loss_h):
-        raise AssertionError(f"two-tower loss card {float(loss_c)} vs CPU "
-                             f"{loss_h}")
-    gpar = grad_parity(grads_c, grads_h, grads_64, rows, "two-tower")
-    # one update from the card's gradients on both sides
-    def host(t, k):             # a copy, also when dev is the CPU
-        return (t[rows[k]] if k in rows else t).to("cpu", copy=True)
-
-    cpu_state = AdamWState(step=opt.step.cpu(),
-                           mu={k: host(m, k) for k, m in opt.mu.items()},
-                           nu={k: host(v, k) for k, v in opt.nu.items()})
-    cpu_grads = {k: host(g, k) for k, g in grads_c.items()}
-    _, opt = adamw_update(arch.opt, grads_c, opt, model)
-    _, cpu_state = adamw_update(arch.opt, cpu_grads, cpu_state, cpu)
-    upd_err = update_parity(model, opt, cpu, cpu_state, rows, "two-tower")
-    outside = 0
-    for k, r in rows.items():         # in place: the gradients are spent
-        outside += int(grads_c[k].index_fill_(0, r.long(), 0.0)
-                       .count_nonzero())
-    if outside:
-        raise AssertionError(f"two-tower: {outside} gradient entries outside "
-                             "the batch's table rows")
-    del grads_c, cpu_grads, copies
+    opt, par = step1_parity(dev, "two-tower-retrieval", model, opt, sub,
+                            "two-tower")
     # the blocked loss against the plain one on the card
     with torch.no_grad():
         u = model.user_embed(sub)
@@ -3128,14 +3135,10 @@ def two_tower_train(dev, model, cfg, b: int, steps: int = TRAIN_STEPS,
         if not torch.allclose(a, w, rtol=1e-5, atol=1e-6 * scale):
             raise AssertionError("blocked loss gradient vs plain")
         g_err = max(g_err, float((a - w).abs().max()))
-    log("parity", path="two-tower train_batch", rows=parity_rows,
-        touched_user_rows=len(rows["user_emb"]),
-        touched_item_rows=len(rows["item_emb"]),
-        loss_card=float(loss_c), loss_cpu=loss_h, loss_fp64=loss_64,
-        gradients=gpar, gradient_outside_rows=outside,
-        adamw_update_max_abs_err=upd_err,
+    log("parity", path="two-tower train_batch", rows=parity_rows, **par,
         blocked_vs_plain_loss_err=blk_err, blocked_vs_plain_grad_err=g_err)
-    rec.update(parity_loss_card=float(loss_c), parity_loss_cpu=loss_h)
+    rec.update(parity_loss_card=par["loss_card"],
+               parity_loss_cpu=par["loss_cpu"])
     return rec
 
 
@@ -3753,6 +3756,571 @@ def pna_sparse_phases(dev, reduced: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# recsys: DIEN, SASRec and DCN-v2, every cell at FULL width
+# ---------------------------------------------------------------------------
+
+RECSYS_SEED = 10
+RECSYS_ARCHES = ("dien", "sasrec", "dcn-v2")
+RECSYS_STEPS = 5            # counted train_batch steps, after one warm-up
+RECSYS_SERVE_CALLS = {"serve_p99": 10, "serve_bulk": 3}   # after a warm-up
+RECSYS_RETRIEVAL_CALLS = 2  # timed retrieval_cand calls, after a warm-up
+RECSYS_PARITY_ROWS = 4096   # train rows held to a CPU copy
+RECSYS_SERVE_PARITY = 64    # serve rows held to a CPU copy
+RECSYS_CAND_PARITY = 1024   # candidate scores held to a CPU copy
+RECSYS_TOL = dict(rtol=1e-5, atol=1e-6)
+# a counted step's loss may exceed the one before by fp32 rounding only
+LOSS_RISE_RTOL = 1e-6
+
+
+def recsys_lookups(arch_id: str, cfg) -> list:
+    """(table, batch field, column or None) of every table lookup of the
+    arch's cells; the candidates ride along under ``cand_*`` names."""
+    if arch_id == "two-tower-retrieval":
+        return [("user_emb", "user_id", None), ("user_emb", "user_feats", None),
+                ("item_emb", "item_id", None)]
+    if arch_id == "dien":
+        return ([("item_emb", f, None) for f in ("hist_items", "target_item",
+                                                 "cand_items")]
+                + [("cate_emb", f, None) for f in ("hist_cates",
+                                                   "target_cate",
+                                                   "cand_cates")])
+    if arch_id == "sasrec":
+        return [("item_emb", f, None)
+                for f in ("seq", "pos", "neg", "target", "cand_ids")]
+    return ([(f"tables.{i}", "sparse", i) for i in range(cfg.n_sparse)]
+            + [("tables.0", "cand_sparse", None)])
+
+
+class ZipfIds:
+    """Ids of a ``ZIPF_EXPONENT`` popularity law over ``v`` ids, the ranks
+    shuffled over the ids (a permutation drawn from ``rng``)."""
+
+    def __init__(self, rng, v: int):
+        p = np.arange(1, v + 1, dtype=np.float64) ** -ZIPF_EXPONENT
+        self.cdf = np.cumsum(p / p.sum())
+        self.cdf[-1] = 1.0
+        self.of_rank = rng.permutation(v).astype(np.int32)
+
+    def draw(self, rng, shape) -> np.ndarray:
+        rank = np.searchsorted(self.cdf, rng.random(shape), side="right")
+        return self.of_rank[np.minimum(rank, len(self.cdf) - 1)]
+
+
+def recsys_traffic(arch_id: str, cfg, seed: int = RECSYS_SEED):
+    """``draw(b, kind) -> numpy batch`` of the arch's paper traffic, all
+    batches from one numpy generator seeded ``seed``: DIEN (Amazon Books)
+    histories of lengths uniform in [1, S] (prefix mask, -1 beyond), items
+    Zipf(1.1) over the items, categories from a fixed item -> category
+    map, labels Bernoulli(0.5); SASRec sequences of lengths uniform in
+    [2, S] left-padded with -1, items Zipf(1.1), ``pos`` the sequence
+    shifted by one, ``N_NEG`` negatives uniform over the items; DCN-v2
+    (Criteo) 13 dense features ``log1p`` of exponential draws, each sparse
+    column Zipf(1.1) over its own vocabulary, labels Bernoulli(0.25).
+    ``kind``: ``train``, ``serve`` or ``retrieval`` (one user, and ``n``
+    candidates ``cand_*``: every item id, or every id of DCN-v2's column
+    0, in a random order, repeated when ``n`` is larger).  DIEN's
+    retrieval user has a full history of S steps: the AUGRU then runs
+    every step of the reference's S-step loop (the port skips steps
+    masked for all candidates)."""
+    from repro_torch.configs.sasrec import N_NEG
+    rng = np.random.default_rng(seed)
+    if arch_id == "dcn-v2":
+        laws = {}
+        for v in sorted(set(cfg.vocab_sizes)):
+            laws[v] = ZipfIds(rng, v)
+    else:
+        items = ZipfIds(rng, cfg.n_items)
+        cate_of = (rng.integers(0, cfg.n_cates, cfg.n_items, dtype=np.int32)
+                   if arch_id == "dien" else None)
+
+    def cands(v: int, n: int) -> np.ndarray:
+        return np.resize(rng.permutation(v).astype(np.int32), n)
+
+    def draw(b: int, kind: str, n: int = 0) -> dict:
+        if arch_id == "dien":
+            s = cfg.seq_len
+            lens = (np.full(b, s) if kind == "retrieval"
+                    else rng.integers(1, s + 1, b))
+            m = np.arange(s)[None] < lens[:, None]
+            hist = np.where(m, items.draw(rng, (b, s)), -1).astype(np.int32)
+            tgt = items.draw(rng, b)
+            out = {"hist_items": hist,
+                   "hist_cates": np.where(m, cate_of[np.maximum(hist, 0)],
+                                          -1).astype(np.int32),
+                   "mask": m.astype(np.float32),
+                   "target_item": tgt, "target_cate": cate_of[tgt],
+                   "label": (rng.random(b) < 0.5).astype(np.float32)}
+            if kind == "retrieval":
+                ids = cands(cfg.n_items, n)
+                out.update(cand_items=ids, cand_cates=cate_of[ids])
+        elif arch_id == "sasrec":
+            # a user's L items and the next one, the last L + 1 of S + 1
+            s = cfg.seq_len
+            lens = rng.integers(2, s + 1, b)
+            real = (np.arange(s)[None] >= (s - lens)[:, None])
+            full = items.draw(rng, (b, s + 1))
+            out = {"seq": np.where(real, full[:, :-1], -1).astype(np.int32)}
+            if kind == "train":
+                out["pos"] = np.where(real, full[:, 1:], -1).astype(np.int32)
+                out["neg"] = rng.integers(0, cfg.n_items, (b, s, N_NEG),
+                                          dtype=np.int32)
+            elif kind == "serve":
+                out["target"] = full[:, -1]
+            else:
+                out["cand_ids"] = cands(cfg.n_items, n)
+        else:
+            out = {"dense": np.log1p(rng.exponential(size=(b, cfg.n_dense))
+                                     ).astype(np.float32),
+                   "sparse": np.stack([laws[v].draw(rng, b)
+                                       for v in cfg.vocab_sizes], axis=1),
+                   "label": (rng.random(b) < 0.25).astype(np.float32)}
+            if kind == "retrieval":
+                out["cand_sparse"] = cands(cfg.vocab_sizes[0], n)
+        if kind != "train":
+            out.pop("label", None)
+        return out
+
+    return draw
+
+
+def recsys_copy(arch_id: str, model, batch: dict, dtype):
+    """A CPU copy of ``model`` holding only the table rows ``batch``
+    touches (ids clamped to the table, unique, remapped; -1 stays -1), in
+    ``dtype``: (copy, its batch on the CPU, {table: card rows}).  Valid for
+    ids in [-1, V): a clip-to-0 read of a -1 meets another row 0 here,
+    which the arches' paths only do under a mask."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.common import set_named_params
+    params = dict(model.named_parameters())
+    lookups = [(t, f, c) for t, f, c in recsys_lookups(arch_id, model.cfg)
+               if f in batch]
+
+    def ids_of(field, col):
+        return batch[field] if col is None else batch[field][:, col]
+
+    rows = {}
+    for table in dict.fromkeys(t for t, _, _ in lookups):
+        flat = torch.cat([ids_of(f, c).reshape(-1)
+                          for t, f, c in lookups if t == table])
+        rows[table] = flat[flat >= 0].clamp_max(
+            params[table].shape[0] - 1).unique()
+    out = {k: (t.detach().to("cpu", dtype) if t.dtype.is_floating_point
+               else t.to("cpu", copy=True)) for k, t in batch.items()}
+    for table, field, col in lookups:
+        ids = ids_of(field, col)
+        r = torch.searchsorted(rows[table], ids.clamp(
+            0, params[table].shape[0] - 1))
+        r = torch.where(ids >= 0, r, ids).to(torch.int32).cpu()
+        if col is None:
+            out[field] = r
+        else:
+            out[field][:, col] = r
+    cfg = model.cfg
+    n = {k: len(r) for k, r in rows.items()}
+    if arch_id == "two-tower-retrieval":
+        cfg = dataclasses.replace(cfg, n_users=n["user_emb"],
+                                  n_items=n["item_emb"], dtype=dtype)
+    elif arch_id == "dien":
+        cfg = dataclasses.replace(cfg, n_items=n["item_emb"],
+                                  n_cates=n["cate_emb"], dtype=dtype)
+    elif arch_id == "sasrec":
+        cfg = dataclasses.replace(cfg, n_items=n["item_emb"], dtype=dtype)
+    else:
+        cfg = dataclasses.replace(cfg, dtype=dtype, vocab_sizes=tuple(
+            n[f"tables.{i}"] for i in range(cfg.n_sparse)))
+    named = {k: (p[rows[k]] if k in rows else p).detach().to(
+        "cpu", dtype, copy=True) for k, p in params.items()}
+    copy = set_named_params(get_arch(arch_id).module(cfg), named)
+    return copy, out, rows
+
+
+def step1_parity(dev, arch_id: str, model, opt, sub: dict, what: str
+                 ) -> tuple:
+    """Step 1 of the arch's ``train_batch`` on the rows ``sub`` against CPU
+    copies of the table rows they touch (:func:`recsys_copy`) that take the
+    card's ReLU branch (:func:`relu_branch`): each unit where the card's
+    branch differs from float64's has a float64 input within
+    ``RELU_FLIP_TOL`` of its call's largest; the loss within rtol 1e-5 of
+    the fp32 copy's; the card's path in float64 within ``RECSYS_FP64_TOL``
+    of the float64 copy; the fp32 gradients by :func:`grad_parity`; no
+    gradient outside the touched rows; one ``adamw_update`` of ``model`` /
+    ``opt`` and of the copy from the card's gradients
+    (:func:`update_parity`).  Returns (the updated ``opt``, the record)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.train import adamw_update, value_and_grad
+    from repro_torch.train.optimizer import AdamWState
+    arch = get_arch(arch_id)
+    z_card = []
+    with relu_branch(seen=z_card):
+        loss_c, grads_c = value_and_grad(
+            arch.loss_fn(model.cfg, "train_batch"), model, sub)
+    t0 = time.perf_counter()
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        cpu, cpu_batch, rows = recsys_copy(arch_id, model, sub, dtype)
+        z = []
+        with relu_branch(card=z_card, seen=z):
+            loss_h, grads_h = value_and_grad(
+                arch.loss_fn(cpu.cfg, "train_batch"), cpu, cpu_batch)
+        runs[dtype] = (cpu, cpu_batch, float(loss_h), grads_h, z)
+    cpu_s = time.perf_counter() - t0
+    cpu, _, loss_h, grads_h, _ = runs[torch.float32]
+    cpu64, batch64, loss_64, grads_64, z64 = runs[torch.float64]
+    flips, flip_worst = 0, 0.0
+    for zc, zd in zip(z_card, z64):
+        f = (zc.cpu() > 0) != (zd > 0)
+        if bool(f.any()):
+            flips += int(f.sum())
+            flip_worst = max(flip_worst, float(zd[f].abs().max())
+                             / float(zd.abs().max()))
+    if not flip_worst <= RELU_FLIP_TOL:
+        raise AssertionError(
+            f"{what}: a ReLU unit takes another branch on the card than in "
+            f"float64 at an input {flip_worst:.3g} of its call's largest "
+            f"(> {RELU_FLIP_TOL})")
+    if not abs(float(loss_c) - loss_h) <= 1e-5 * abs(loss_h):
+        raise AssertionError(f"{what} loss card {float(loss_c)} vs CPU "
+                             f"{loss_h}")
+    # the card's path in float64 (the copy moved to the card, in place)
+    with relu_branch(card=z_card):
+        loss_c64, grads_c64 = value_and_grad(
+            arch.loss_fn(cpu64.cfg, "train_batch"), cpu64.to(dev),
+            {k: v.to(dev) for k, v in batch64.items()})
+    fp64 = max([abs(float(loss_c64) - loss_64) / abs(loss_64)]
+               + [float((g.cpu() - grads_64[k]).norm())
+                  / (float(grads_64[k].norm()) or 1.0)
+                  for k, g in grads_c64.items()])
+    if not fp64 <= RECSYS_FP64_TOL:
+        raise AssertionError(f"{what} in float64: card vs CPU {fp64:.3g} > "
+                             f"{RECSYS_FP64_TOL}")
+    del runs, cpu64, batch64, grads_c64, z_card, z64
+    gpar = grad_parity(grads_c, grads_h, grads_64, rows, what)
+
+    def host(t, k):             # a copy, also when dev is the CPU
+        return (t[rows[k]] if k in rows else t).to("cpu", copy=True)
+
+    cpu_opt = AdamWState(step=opt.step.to("cpu", copy=True),
+                         mu={k: host(m, k) for k, m in opt.mu.items()},
+                         nu={k: host(v, k) for k, v in opt.nu.items()})
+    cpu_grads = {k: host(g, k) for k, g in grads_c.items()}
+    _, opt = adamw_update(arch.opt, grads_c, opt, model)
+    _, cpu_opt = adamw_update(arch.opt, cpu_grads, cpu_opt, cpu)
+    outside = 0
+    for k, r in rows.items():          # in place: the gradients are spent
+        outside += int(grads_c[k].index_fill_(0, r.long(), 0.0)
+                       .count_nonzero())
+    if outside:
+        raise AssertionError(f"{what}: {outside} gradient entries outside "
+                             "the batch's table rows")
+    upd_err = update_parity(model, opt, cpu, cpu_opt, rows, what)
+    return opt, dict(
+        touched_rows={k: len(r) for k, r in rows.items()},
+        loss_card=float(loss_c), loss_cpu=loss_h, loss_fp64=loss_64,
+        relu_flips=flips, relu_flip_worst=flip_worst, gradients=gpar,
+        card_fp64_vs_cpu_fp64=fp64, gradient_outside_rows=outside,
+        adamw_update_max_abs_err=upd_err, cpu_s=round(cpu_s, 3))
+
+
+def recsys_train(dev, arch_id: str, model, draw, b: int,
+                 steps: int = RECSYS_STEPS,
+                 parity_rows: int = RECSYS_PARITY_ROWS) -> dict:
+    """``train_batch``: step 1 on the batch's first ``parity_rows`` rows
+    against CPU copies of the rows they touch (:func:`step1_parity`;
+    ``model`` takes that step), the blocked loss (DIEN's ``GRUScan``,
+    SASRec's ``SampledLogits``) against its plain version on the card, then
+    one
+    warm-up and ``steps`` counted steps on the whole batch (step ms,
+    examples/s, peak memory, losses finite and not rising)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys
+    from repro_torch.train import init_adamw, value_and_grad
+    arch = get_arch(arch_id)
+    cfg = model.cfg
+    loss_fn = arch.loss_fn(cfg, "train_batch")
+    t0 = time.perf_counter()
+    host = draw(b, "train")
+    t1 = time.perf_counter()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    sync(dev)
+    data = dict(data_host_s=round(t1 - t0, 3),
+                data_move_s=round(time.perf_counter() - t1, 3))
+    del host
+    mem0 = reset_peak(dev)
+
+    # step 1 on the first rows against CPU copies
+    sub = {k: v[:parity_rows] for k, v in batch.items()}
+    opt, par = step1_parity(dev, arch_id, model, init_adamw(model), sub,
+                            arch_id)
+
+    # the blocked loss against the plain one, on the card
+    plain = {"dien": lambda m, bt: recsys.dien_loss(cfg, m, bt, plain=True),
+             "sasrec": lambda m, bt: recsys.sasrec_loss(cfg, m, bt,
+                                                        plain=True)}
+    blk = {}
+    if arch_id in plain:
+        lb, gb = value_and_grad(loss_fn, model, sub)
+        lp, gp = value_and_grad(plain[arch_id], model, sub)
+        if not abs(float(lb) - float(lp)) <= 1e-6 * abs(float(lp)):
+            raise AssertionError(f"{arch_id} blocked loss {float(lb)} vs "
+                                 f"plain {float(lp)}")
+        g_err = 0.0
+        for k, w in gp.items():
+            scale = max(1.0, float(w.abs().max()))
+            if not torch.allclose(gb[k], w, rtol=1e-5, atol=1e-6 * scale):
+                raise AssertionError(f"{arch_id} blocked gradient {k} vs "
+                                     "plain")
+            g_err = max(g_err, float((gb[k] - w).abs().max()))
+        blk = dict(blocked_vs_plain_loss_err=abs(float(lb) - float(lp)),
+                   blocked_vs_plain_grad_err=g_err)
+        del gb, gp
+    log("parity", path=f"{arch_id} train_batch step 1",
+        rows=min(parity_rows, b), **par, **blk)
+    del sub
+
+    step = arch.step_fn(cfg, "train_batch")
+    t0 = time.perf_counter()
+    _, opt, loss0 = step(model, opt, batch)              # warm-up
+    sync(dev)
+    warm_s = time.perf_counter() - t0
+    opt, ms, losses, launches = counted_steps(dev, step, model, opt, batch,
+                                              steps, f"{arch_id} train")
+    seq = [float(loss0)] + losses
+    if not np.isfinite(seq).all() or any(
+            b2 > a2 + LOSS_RISE_RTOL * abs(a2) for a2, b2 in zip(seq,
+                                                                 seq[1:])):
+        raise AssertionError(f"{arch_id} train losses rose: {seq}")
+    ms_a = np.array(ms)
+    rec = dict(batch=b, steps=steps, **data, warmup_step_s=round(warm_s, 3),
+               step_p50_ms=round(float(np.percentile(ms_a, 50)), 3),
+               step_max_ms=round(float(ms_a.max()), 3),
+               examples_per_s=round(b / np.percentile(ms_a, 50) * 1e3, 1),
+               **peak_memory(dev, mem0), loss_warmup=float(loss0),
+               losses=[round(v, 6) for v in losses],
+               parity_loss_card=par["loss_card"],
+               parity_loss_cpu=par["loss_cpu"], kernel_launches=launches)
+    log("train", arch=arch_id, shape="train_batch", **rec)
+    del opt
+    return rec
+
+
+def assert_scores_close(got, want, what: str) -> float:
+    import torch
+    got = got.detach().cpu().to(want.dtype)
+    if not torch.allclose(got, want, **RECSYS_TOL):
+        bad = (got - want).abs() - RECSYS_TOL["rtol"] * want.abs()
+        i = int(bad.argmax())
+        raise AssertionError(f"{what}: card {float(got[i])} vs CPU "
+                             f"{float(want[i])} at {i}")
+    return float((got - want).abs().max())
+
+
+def recsys_serve(dev, arch_id: str, model, draw, shape: str, b: int,
+                 calls: int) -> dict:
+    """A serve cell: one warm-up and ``calls`` timed calls of the arch's
+    serve step on a batch of ``b`` (p50 ms, peak memory), the first
+    ``RECSYS_SERVE_PARITY`` rows against a CPU copy; no kernel launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    arch = get_arch(arch_id)
+    fn = arch.step_fn(model.cfg, shape)
+    t0 = time.perf_counter()
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in draw(b, "serve").items()}
+    sync(dev)
+    data_s = time.perf_counter() - t0
+    mem0 = reset_peak(dev)
+    with torch.no_grad():
+        out = fn(model, batch)
+        sync(dev)
+        counters = zero_launches()
+        ms = []
+        for _ in range(calls):
+            del out
+            t0 = time.perf_counter()
+            out = fn(model, batch)
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = check_no_launches(counters, f"{arch_id} {shape}")
+    peak = peak_memory(dev, mem0)
+    if tuple(out.shape) != (b,) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{arch_id} {shape}: output {tuple(out.shape)}"
+                             " not (b,) finite")
+    sub = {k: v[:RECSYS_SERVE_PARITY] for k, v in batch.items()}
+    cpu, cpu_batch, _ = recsys_copy(arch_id, model, sub, torch.float32)
+    with torch.no_grad():
+        err = assert_scores_close(out[:RECSYS_SERVE_PARITY],
+                                  arch.step_fn(cpu.cfg, shape)(cpu,
+                                                               cpu_batch),
+                                  f"{arch_id} {shape}")
+    rec = dict(batch=b, calls=calls, data_s=round(data_s, 3),
+               p50_ms=round(float(np.percentile(ms, 50)), 3),
+               max_ms=round(float(max(ms)), 3),
+               rows_per_s=round(b / np.percentile(ms, 50) * 1e3, 1), **peak,
+               parity_rows=RECSYS_SERVE_PARITY, max_abs_err=err,
+               kernel_launches=launches)
+    log("serve", arch=arch_id, shape=shape, **rec)
+    return rec
+
+
+def dien_retrieval_bound(cfg, n: int, steps: int) -> dict:
+    """The fp32 operations of DIEN's ``retrieval_cand`` for one user (the
+    AUGRU's hidden-side GEMM and gates over ``steps`` valid steps, the
+    attention logits, the head) over the card's fp32 peak."""
+    g, e2 = cfg.gru_dim, 2 * cfg.embed_dim
+    dims = (g + 3 * e2,) + tuple(cfg.mlp_dims) + (1,)
+    flops = n * (steps * (2 * g * 3 * g + 12 * g) + cfg.seq_len * 2 * e2
+                 + sum(2 * a * b for a, b in zip(dims, dims[1:])))
+    return dict(gemm_bound_ms=flops / PEAK_FP32_PER_S * 1e3,
+                flops=flops)
+
+
+def recsys_retrieval(dev, arch_id: str, model, draw, n: int, chunk_note: str,
+                     reduced: bool = False,
+                     calls: int = RECSYS_RETRIEVAL_CALLS) -> dict:
+    """``retrieval_cand``: one user against ``n`` candidates (every id, in
+    a random order), one warm-up and ``calls`` timed calls (p50 ms, peak
+    memory), the first ``RECSYS_CAND_PARITY`` scores against a CPU copy.
+    DCN-v2 runs both ``retrieve`` and ``retrieve_opt`` and their scores
+    must agree."""
+    import torch
+    from repro_torch.configs import get_arch
+    arch = get_arch(arch_id)
+    cfg = model.cfg
+    host = draw(1, "retrieval", n)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    names = {"dien": ["cand_items", "cand_cates"], "sasrec": ["cand_ids"],
+             "dcn-v2": ["cand_sparse"]}[arch_id]
+    cands = [batch[nm] for nm in names]
+    user = {k: v for k, v in batch.items() if not k.startswith("cand_")}
+    opts = {"retrieve": {}}
+    if arch_id == "dcn-v2":
+        opts["retrieve_opt"] = {"optimized": True}
+    variants = {name: arch.step_fn(cfg, "retrieval_cand", reduced=reduced,
+                                   **o) for name, o in opts.items()}
+    rec = dict(n_candidates=n, calls=calls, chunk=chunk_note)
+    scores = {}
+    counters = None
+    with torch.no_grad():
+        for name, fn in variants.items():
+            mem0 = reset_peak(dev)
+            out = fn(model, user, *cands)
+            sync(dev)
+            if counters is None:
+                counters = zero_launches()
+            ms = []
+            for _ in range(calls):
+                del out
+                t0 = time.perf_counter()
+                out = fn(model, user, *cands)
+                sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            if tuple(out.shape) != (n,) or not bool(
+                    torch.isfinite(out).all()):
+                raise AssertionError(f"{arch_id} retrieval_cand {name}: "
+                                     "output not (n,) finite")
+            scores[name] = out
+            rec[name] = dict(p50_ms=round(float(np.percentile(ms, 50)), 3),
+                             max_ms=round(float(max(ms)), 3),
+                             **peak_memory(dev, mem0))
+        launches = check_no_launches(counters, f"{arch_id} retrieval_cand")
+    if "retrieve_opt" in scores:
+        rec["retrieve_vs_opt_max_abs_err"] = assert_scores_close(
+            scores["retrieve_opt"], scores["retrieve"].cpu(),
+            "dcn-v2 retrieve_opt vs retrieve")
+    k = min(RECSYS_CAND_PARITY, n)
+    sub = dict(user, **{nm: c[:k] for nm, c in zip(names, cands)})
+    cpu, cpu_batch, _ = recsys_copy(arch_id, model, sub, torch.float32)
+    cpu_user = {kk: v for kk, v in cpu_batch.items()
+                if not kk.startswith("cand_")}
+    cpu_cands = [cpu_batch[nm] for nm in names]
+    with torch.no_grad():
+        for name, o in opts.items():
+            fn = arch.step_fn(cpu.cfg, "retrieval_cand", reduced=reduced,
+                              **o)
+            rec[name]["max_abs_err"] = assert_scores_close(
+                scores[name][:k], fn(cpu, cpu_user, *cpu_cands),
+                f"{arch_id} retrieval_cand {name}")
+    if arch_id == "dien":
+        steps = int((user["mask"][0] > 0).sum())
+        rec.update(valid_steps=steps,
+                   ms_per_step=round(rec["retrieve"]["p50_ms"] / steps, 3),
+                   **dien_retrieval_bound(cfg, n, steps))
+    rec.update(parity_candidates=k, kernel_launches=launches)
+    log("retrieval", arch=arch_id, shape="retrieval_cand", **rec)
+    return rec
+
+
+def recsys_arch(dev, arch_id: str, reduced: bool = False) -> dict:
+    """Every cell of one arch on a model drawn from a seeded generator on
+    ``dev``: ``train_batch``, ``serve_p99``, ``serve_bulk`` and
+    ``retrieval_cand`` at the arch's FULL config (REDUCED with
+    ``reduced``)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.recsys_common import (RECSYS_SHAPES,
+                                                   REDUCED_RECSYS_SHAPES)
+    shapes = REDUCED_RECSYS_SHAPES if reduced else RECSYS_SHAPES
+    arch = get_arch(arch_id)
+    cfg = arch.config(reduced=reduced)
+    t0 = time.perf_counter()
+    model = arch.init(cfg, torch.Generator(device=dev).manual_seed(
+        RECSYS_SEED), device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    nparams = sum(p.numel() for p in model.parameters())
+    t0 = time.perf_counter()
+    draw = recsys_traffic(arch_id, cfg)
+    log("recsys", arch=arch_id, params=nparams, init_s=round(init_s, 3),
+        traffic_setup_s=round(time.perf_counter() - t0, 3),
+        reduced=reduced, tf32=bool(torch.backends.cuda.matmul.allow_tf32))
+    out = dict(params=nparams)
+    out["train_batch"] = recsys_train(dev, arch_id, model, draw,
+                                      shapes["train_batch"]["batch"])
+    for shape in ("serve_p99", "serve_bulk"):
+        out[shape] = recsys_serve(dev, arch_id, model, draw, shape,
+                                  shapes[shape]["batch"],
+                                  RECSYS_SERVE_CALLS[shape])
+    note = {"dien": f"{'64' if reduced else '4096'} candidates a chunk",
+            "sasrec": "one GEMM", "dcn-v2": "one batch"}[arch_id]
+    out["retrieval_cand"] = recsys_retrieval(
+        dev, arch_id, model, draw, shapes["retrieval_cand"]["n_candidates"],
+        note, reduced)
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def recsys_phases(dev, reduced: bool = False) -> dict:
+    """The ``train`` phase's ``recsys`` part: DIEN, SASRec and DCN-v2, each
+    cell at FULL width (fp32 products: TF32 stays off); none of the port's
+    kernels launches (their lookups are plain gathers, as the reference's
+    ``jnp.take``)."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch_id in RECSYS_ARCHES:
+        t1 = time.perf_counter()
+        out[arch_id] = recsys_arch(dev, arch_id, reduced)
+        out[arch_id]["seconds"] = round(time.perf_counter() - t1, 1)
+        log("recsys", arch=arch_id, seconds=out[arch_id]["seconds"])
+    out["seconds"] = time.perf_counter() - t0
+    names = [fn.__name__ for fn in all_launchers()]
+    out["kernel_launches"] = {
+        name: sum(out[a][cell]["kernel_launches"][name]
+                  for a in RECSYS_ARCHES
+                  for cell in ("train_batch", "serve_p99", "serve_bulk",
+                               "retrieval_cand"))
+        for name in names}
+    log("train", part="recsys", seconds=f"{out['seconds']:.1f}",
+        kernel_launches=out["kernel_launches"])
+    return out
+
+
 def all_launchers() -> list:
     """The launch-counted wrapper of every kernel of the port."""
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda
@@ -4038,11 +4606,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # ---- train, pna_sparse: PNA's sparse and minibatch cells ----
     sparse = pna_sparse_phases(dev)
+    # ---- train, recsys: DIEN, SASRec and DCN-v2, every cell at FULL ----
+    recsys = recsys_phases(dev)
     records.append(pna_phases(dev, flush, args.profile, base, floor_ms))
     for rcd in records:   # the train path runs none of the port's kernels
         rcd["train_launches"] = sum(
             part["kernel_launches"][rcd["name"] + "_cuda"]
             for part in (train["two_tower"], train["pna"], sparse))
+        rcd["recsys_launches"] = recsys["kernel_launches"][
+            rcd["name"] + "_cuda"]
 
     # ---- engine: HCPS serving at LAION-1M scale, four shards ----
     t0 = time.perf_counter()

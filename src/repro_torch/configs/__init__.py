@@ -8,7 +8,10 @@ import importlib
 _MODULES = {
     "acorn": "repro_torch.configs.acorn",
     "pna": "repro_torch.configs.pna",
+    "dien": "repro_torch.configs.dien",
     "two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
+    "sasrec": "repro_torch.configs.sasrec",
+    "dcn-v2": "repro_torch.configs.dcn_v2",
 }
 
 ARCH_IDS = list(_MODULES)
@@ -17,7 +20,6 @@ ARCH_IDS = list(_MODULES)
 def get_arch(name: str):
     if name not in _MODULES:
         raise NotImplementedError(
-            f"arch {name!r} is not ported (ported: {ARCH_IDS}); the other "
-            "arches wait in ROADMAP.md queue 1 (item 5c for the other recsys "
-            "arches, 5d for the LMs)")
+            f"arch {name!r} is not ported (ported: {ARCH_IDS}); the LM "
+            "arches wait in ROADMAP.md queue 1 item 5d")
     return importlib.import_module(_MODULES[name]).ARCH

@@ -22,8 +22,10 @@ from repro_torch.core.index import AcornConfig, HybridIndex
 from repro_torch.core.predicates import AttributeTable, SelectivitySketch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.gnn import PNA, PNAConfig, set_pna_params
-from repro_torch.models.recsys import (TwoTower, TwoTowerConfig,
-                                       set_two_tower_params)
+from repro_torch.models.common import set_named_params
+from repro_torch.models.recsys import (DCNv2, DCNv2Config, DIEN, DIENConfig,
+                                       SASRec, SASRecConfig, TwoTower,
+                                       TwoTowerConfig, set_two_tower_params)
 from repro_torch.serve.engine import EngineConfig, ServingEngine
 from repro_torch.train.optimizer import AdamWState
 
@@ -149,6 +151,23 @@ def _pna_arrays(tree: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
+def _flat_arrays(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A reference tree of dicts and lists as ``{dotted path: array}``
+    (``{"mlp": {"w": [a, b]}}`` -> ``mlp.w.0``, ``mlp.w.1``): the port's
+    parameter names of the models that keep the reference's layouts
+    (DIEN, SASRec, DCN-v2)."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(_flat_arrays(v, f"{prefix}{k}."))
+    return out
+
+
 def _tensor(a, dev, dtype=torch.float32) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(
         device=dev, dtype=dtype)
@@ -190,13 +209,49 @@ def pna_params_from_arrays(tree: Mapping, cfg: PNAConfig,
          for i in range(len(tree["layers"]))])
 
 
+def _same_layout(tree: Mapping, model_cls, cfg, device) -> torch.nn.Module:
+    dev = resolve_device(device)
+    return set_named_params(model_cls(cfg), {
+        k: _tensor(a, dev, cfg.dtype) for k, a in _flat_arrays(tree).items()})
+
+
+def dien_params_from_arrays(tree: Mapping, cfg: DIENConfig,
+                            device: DeviceLike = "cuda") -> DIEN:
+    """A :class:`DIEN` that computes what the reference's ``init_dien``
+    parameter tree computes (``item_emb``, ``cate_emb``, ``gru1`` and
+    ``augru`` each ``{"wi", "wh", "b"}``, ``att_w``, ``mlp`` ``{"w": [...],
+    "b": [...]}``; numpy leaves, the same layouts in both packages)."""
+    return _same_layout(tree, DIEN, cfg, device)
+
+
+def sasrec_params_from_arrays(tree: Mapping, cfg: SASRecConfig,
+                              device: DeviceLike = "cuda") -> SASRec:
+    """A :class:`SASRec` from the reference's ``init_sasrec`` tree
+    (``item_emb``, ``pos_emb``, ``blocks``: a list of ``{"wq", "wk", "wv",
+    "wo", "w1", "w2", "ln1", "ln2"}``); the same layouts."""
+    return _same_layout(tree, SASRec, cfg, device)
+
+
+def dcnv2_params_from_arrays(tree: Mapping, cfg: DCNv2Config,
+                             device: DeviceLike = "cuda") -> DCNv2:
+    """A :class:`DCNv2` from the reference's ``init_dcnv2`` tree
+    (``tables``: a list, ``cross``: a list of ``{"w", "b"}``, ``mlp``,
+    ``head``); the same layouts."""
+    return _same_layout(tree, DCNv2, cfg, device)
+
+
+_LAYOUTS = {TwoTower: _two_tower_arrays, PNA: _pna_arrays,
+            DIEN: _flat_arrays, SASRec: _flat_arrays, DCNv2: _flat_arrays}
+
+
 def param_arrays(tree: Mapping, model: torch.nn.Module
                  ) -> Dict[str, np.ndarray]:
     """A reference tree over ``model``'s parameters (the parameters
     themselves, their gradients or a moment; numpy leaves) as
     ``{port parameter name: array}``, in the port's layouts.  ``model`` is
-    a :class:`TwoTower` or a :class:`PNA`."""
-    named = {TwoTower: _two_tower_arrays, PNA: _pna_arrays}[type(model)](tree)
+    a :class:`TwoTower`, :class:`PNA`, :class:`DIEN`, :class:`SASRec` or
+    :class:`DCNv2`."""
+    named = _LAYOUTS[type(model)](tree)
     if sorted(named) != sorted(k for k, _ in model.named_parameters()):
         raise ValueError("the tree's keys do not match the model's "
                          "parameters")
@@ -206,10 +261,10 @@ def param_arrays(tree: Mapping, model: torch.nn.Module
 def adamw_state_from_arrays(step, mu: Mapping, nu: Mapping,
                             model: torch.nn.Module,
                             device: DeviceLike = "cuda") -> AdamWState:
-    """The port's :class:`AdamWState` for ``model`` (a :class:`TwoTower`
-    or a :class:`PNA`) from the reference's ``AdamWState`` given as numpy:
-    ``step`` and the ``mu`` / ``nu`` trees, which have the reference's
-    parameter keys.  The moments are renamed and transposed as the
+    """The port's :class:`AdamWState` for ``model`` (any model
+    :func:`param_arrays` takes) from the reference's ``AdamWState`` given
+    as numpy: ``step`` and the ``mu`` / ``nu`` trees, which have the
+    reference's parameter keys.  The moments are renamed and transposed as the
     parameter converters do, so a port step continues a reference step."""
     dev = resolve_device(device)
 

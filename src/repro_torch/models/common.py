@@ -1,4 +1,6 @@
-"""Parameter initialisers and losses shared by the models.
+"""Parameter initialisers, losses, the reference's public helpers
+(``mlp``, ``layer_norm``, ``swiglu``) and its ``jnp`` row indexing
+(``take_rows``), shared by the models.
 
 Each initialiser draws from a ``torch.Generator`` on the target device (the
 tensors are made on the generator's device).  Torch cannot reproduce
@@ -8,7 +10,7 @@ across with ``repro_torch.convert`` instead of re-drawing them.
 from __future__ import annotations
 
 import math
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Callable, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -30,6 +32,61 @@ def embed_init(generator: torch.Generator, v: int, d: int,
     """(v, d) normal embedding table with std ``scale``."""
     t = torch.empty((v, d), dtype=torch.float32, device=generator.device)
     return t.normal_(0.0, scale, generator=generator).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, computed in fp32 (float64 stays
+    float64) and cast back to ``x``'s dtype, as the reference's."""
+    dt = x.dtype
+    ct = torch.promote_types(dt, torch.float32)
+    x = x.to(ct)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.to(ct) + b.to(ct)).to(dt)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """``(silu(x @ w_gate) * (x @ w_up)) @ w_down``; weights (d_in, d_out)."""
+    return (torch.nn.functional.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def mlp(x: torch.Tensor, ws: Sequence[torch.Tensor],
+        bs: Sequence[torch.Tensor], act: Callable = torch.relu,
+        final_act: bool = False) -> torch.Tensor:
+    """``x @ w + b`` for each (d_in, d_out) ``w`` and its ``b``, ``act``
+    between layers and, with ``final_act``, after the last."""
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        x = x @ w + b
+        if i < len(ws) - 1 or final_act:
+            x = act(x)
+    return x
+
+
+def source_rows(idx: torch.Tensor, n: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(read, write) int64 rows of ``idx`` into an (n, ...) tensor, as the
+    reference's ``jnp`` indexing resolves them: a negative index wraps once
+    (+n); ``read`` is then clamped to [0, n - 1], and ``write`` (where a
+    gradient goes) is n, a spare row, for an index still out of range,
+    since the gather's transpose drops it."""
+    i = idx.long()
+    i = torch.where(i < 0, i + n, i)
+    return i.clamp(0, n - 1), torch.where((i >= 0) & (i < n), i, n)
+
+
+def take_rows(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``h[idx]`` for a 1-D ``idx`` as the reference's ``jnp`` indexing
+    computes it: a negative index wraps once, an index still outside
+    [0, N) reads the nearest end row and passes no gradient."""
+    read, write = source_rows(idx, h.shape[0])
+    rows = h.index_select(0, read)
+    if rows.requires_grad:
+        keep = (write < h.shape[0]).view((-1,) + (1,) * (h.dim() - 1))
+        rows = torch.where(keep, rows, rows.detach())
+    return rows
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -56,10 +113,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
                     ) -> torch.Tensor:
-    """Mean binary cross-entropy of logits against {0, 1} labels, in fp32,
-    in the reference's stable form."""
-    logits = logits.float()
-    labels = labels.float()
+    """Mean binary cross-entropy of logits against {0, 1} labels, in fp32
+    (float64 logits stay float64), in the reference's stable form."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    labels = labels.to(logits.dtype)
     return (logits.clamp_min(0) - logits * labels
             + torch.log1p(torch.exp(-logits.abs()))).mean()
 
@@ -74,6 +131,20 @@ def param_count(params: Any) -> int:
     if isinstance(params, (list, tuple)):
         return sum(param_count(v) for v in params)
     return math.prod(params.shape)
+
+
+def set_named_params(model: nn.Module,
+                     named: Mapping[str, torch.Tensor]) -> nn.Module:
+    """:func:`set_params` by dotted parameter name (``"mlp.w.0"``):
+    ``named`` must hold every parameter of ``model`` and nothing else."""
+    if sorted(named) != sorted(k for k, _ in model.named_parameters()):
+        raise ValueError("the names do not match the model's parameters")
+    slots = []
+    for name, t in named.items():
+        owner, _, leaf = name.rpartition(".")
+        slots.append((model.get_submodule(owner), leaf, t))
+    set_params(slots)
+    return model
 
 
 def set_params(slots: Sequence[Tuple[nn.Module, str, torch.Tensor]]) -> None:

@@ -43,7 +43,8 @@ from repro_torch.kernels.pna_aggregate import (pna_aggregate,
                                                pna_aggregate_segment_ref)
 from repro_torch.kernels.pna_aggregate.ref import _moments
 
-from .common import cross_entropy, dense_init, set_params
+from .common import (cross_entropy, dense_init, set_params, source_rows,
+                     take_rows)
 
 Tensor = torch.Tensor
 
@@ -174,35 +175,12 @@ def loss_dense(cfg: PNAConfig, model: PNA, feats: Tensor, adj: Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _source_rows(idx: Tensor, n: int) -> Tuple[Tensor, Tensor]:
-    """(read, write) int64 rows of ``idx`` into an (n, ...) tensor, as the
-    reference's ``jnp`` indexing resolves them: a negative index wraps once
-    (+n); ``read`` is then clamped to [0, n - 1], and ``write`` (where a
-    gradient goes) is n, a spare row, for an index still out of range,
-    since the gather's transpose drops it."""
-    i = idx.long()
-    i = torch.where(i < 0, i + n, i)
-    return i.clamp(0, n - 1), torch.where((i >= 0) & (i < n), i, n)
-
-
 def _dest_rows(dst: Tensor, n: int) -> Tensor:
     """int64 rows of ``dst`` for a segment reduction over n segments: an
     index outside [0, n) (negatives included) goes to a spare row n, the
     edge dropped as ``jax.ops.segment_*`` drop it."""
     d = dst.long()
     return torch.where((d >= 0) & (d < n), d, n)
-
-
-def take_rows(h: Tensor, idx: Tensor) -> Tensor:
-    """``h[idx]`` for a 1-D ``idx`` as the reference's ``jnp`` indexing
-    computes it: a negative index wraps once, an index still outside
-    [0, N) reads the nearest end row and passes no gradient."""
-    read, write = _source_rows(idx, h.shape[0])
-    rows = h.index_select(0, read)
-    if rows.requires_grad:
-        keep = (write < h.shape[0]).view((-1,) + (1,) * (h.dim() - 1))
-        rows = torch.where(keep, rows, rows.detach())
-    return rows
 
 
 class SegmentAggregate(torch.autograd.Function):
@@ -234,7 +212,7 @@ class SegmentAggregate(torch.autograd.Function):
         hmax = h.new_full((rows, f), float("-inf"))
         hmin = h.new_full((rows, f), float("inf"))
         for lo in range(0, src.shape[0], EDGE_CHUNK):
-            read, _ = _source_rows(src[lo:lo + EDGE_CHUNK], h.shape[0])
+            read, _ = source_rows(src[lo:lo + EDGE_CHUNK], h.shape[0])
             d = _dest_rows(dst[lo:lo + EDGE_CHUNK], n_nodes)
             m = h.index_select(0, read) @ w_msg
             del read
@@ -266,7 +244,7 @@ class SegmentAggregate(torch.autograd.Function):
 
         def chunks():
             for lo in range(0, src.shape[0], EDGE_CHUNK):
-                read, write = _source_rows(src[lo:lo + EDGE_CHUNK],
+                read, write = source_rows(src[lo:lo + EDGE_CHUNK],
                                            h.shape[0])
                 x = h.index_select(0, read)
                 yield x, x @ w_msg, write, _dest_rows(

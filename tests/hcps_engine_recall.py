@@ -6,8 +6,8 @@ The reference's ``repro.serve.ServingEngine`` and the port's
 ``make_hcps_dataset`` corpus (each package draws its own graph levels),
 with the serving launcher's configuration: 4 shards, ACORN-γ M = 16,
 γ = 12, M_β = 32, ef_search = 96, batch 32, k = 10.  Both serve the
-workloads of ``chip_smoke.py``'s engine phase (1,024 ``contains``
-queries, correlation none, seed 1; 64 each of ``between``,
+workloads of ``chip_smoke.py``'s engine phase (``--closed``
+``contains`` queries, correlation none, seed 1; 64 each of ``between``,
 ``contains+between``, ``regex`` and ``contains`` pos / neg, seed 2) and
 are scored against one exact ground truth (the reference's masked
 brute force over the whole corpus).  Printed for each side and kind:

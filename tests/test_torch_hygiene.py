@@ -21,9 +21,11 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.pna import ARCH as PNA_ARCH
 from repro_torch.configs.two_tower_retrieval import REDUCED
 from repro_torch.convert import (adamw_state_from_arrays,
+                                 dcnv2_params_from_arrays,
+                                 dien_params_from_arrays,
                                  engine_from_arrays, graph_from_arrays,
                                  oracle_from_arrays, pna_params_from_arrays,
-                                 table_from_arrays,
+                                 sasrec_params_from_arrays, table_from_arrays,
                                  two_tower_params_from_arrays)
 from repro_torch.core import (AcornConfig, HybridIndex, sentinel_result)
 from repro_torch.data import make_hcps_dataset, make_lcps_dataset
@@ -125,6 +127,20 @@ ENTRY_POINTS = {
     "pna_params_from_arrays": lambda: pna_params_from_arrays(
         {"enc": np.zeros((8, 16)), "dec": np.zeros((16, 2)),
          "layers": []}, PNA_REDUCED),
+    "dien_params_from_arrays": lambda: dien_params_from_arrays(
+        {}, get_arch("dien").config(reduced=True)),
+    "sasrec_params_from_arrays": lambda: sasrec_params_from_arrays(
+        {}, get_arch("sasrec").config(reduced=True)),
+    "dcnv2_params_from_arrays": lambda: dcnv2_params_from_arrays(
+        {}, get_arch("dcn-v2").config(reduced=True)),
+    "dien.init": lambda: get_arch("dien").init(
+        get_arch("dien").config(reduced=True)),
+    "sasrec.init": lambda: get_arch("sasrec").init(
+        get_arch("sasrec").config(reduced=True)),
+    "dcn-v2.init": lambda: get_arch("dcn-v2").init(
+        get_arch("dcn-v2").config(reduced=True)),
+    "launch.train dien": lambda: train_main(["--arch", "dien",
+                                             "--steps", "2"]),
 }
 
 

@@ -1,6 +1,7 @@
-"""The train steps of the two ported arches and the training launcher
-against the JAX reference: twins of ``test_recsys_train_step`` (two-tower)
-and ``test_pna_shapes`` (every PNA cell) of ``tests/test_models_smoke.py``;
+"""The train steps of two-tower and PNA and the training launcher (every
+recsys arch) against the JAX reference: twins of
+``test_recsys_train_step`` (two-tower) and ``test_pna_shapes`` (every PNA
+cell) of ``tests/test_models_smoke.py``;
 the reference's parameters and AdamW state carried across
 (``convert.adamw_state_from_arrays``), so a port step continues a
 reference step; PNA's ``loss_dense`` (the plain aggregator, as the
@@ -39,7 +40,8 @@ from repro_torch.train.loop import value_and_grad
 from repro_torch.train.optimizer import (AdamWState, adamw_update,
                                          init_adamw)
 from torch_parity import (assert_grad_close, molecule_graphs,
-                          port_adamw_state, port_pna, port_two_tower)
+                          port_adamw_state, port_pna, port_recsys,
+                          port_two_tower)
 
 KEY = jax.random.PRNGKey(0)
 
@@ -269,6 +271,37 @@ def test_launcher_batches_equal_reference():
             np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jb[k]))
 
 
+@pytest.mark.parametrize("arch_id", ["dien", "sasrec", "dcn-v2"])
+def test_launcher_batches_of_recsys_arches_equal_reference(arch_id):
+    """The launcher's batches for DIEN, SASRec and DCN-v2: the reference
+    launcher's keys, dtypes and values (DIEN's ``mask`` ones and ``label``
+    normal, SASRec's ``neg`` ids in [0, 4))."""
+    jarch, arch = jax_get_arch(arch_id), get_arch(arch_id)
+    jit = jlaunch.make_data_iter(jarch, jarch.config(reduced=True),
+                                 "train_batch")
+    it = launch.make_data_iter(arch, arch.config(reduced=True),
+                               "train_batch", device="cpu")
+    for _ in range(2):
+        jb, tb = next(jit), next(it)
+        assert jb.keys() == tb.keys()
+        for k in jb:
+            assert str(tb[k].dtype) == "torch." + str(jb[k].dtype)
+            np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jb[k]))
+    if arch_id == "dien":
+        assert bool((tb["mask"] == 1).all()) and tb["label"].min() < 0
+    if arch_id == "sasrec":
+        assert tb["neg"].shape == (32, 10, 64) and int(tb["neg"].max()) <= 3
+
+
+@pytest.mark.parametrize("arch_id", ["dien", "dcn-v2"])
+def test_launcher_trains_recsys_arches_on_cpu(arch_id, capsys):
+    res = launch.main(["--arch", arch_id, "--device", "cpu", "--steps", "6"])
+    assert res["steps"] == 6 and res["shape"] == "train_batch"
+    assert np.isfinite([v for _, v in res["losses"]]).all()
+    assert f"{arch_id}/train_batch: 6 steps" in capsys.readouterr().out
+    assert _finite(res["params"])
+
+
 def _reference_launcher_losses(arch_id, steps):
     """The reference launcher's loop (``repro.launch.train.main``) logging
     every step: its probe loss, its data, its AdamW."""
@@ -293,7 +326,8 @@ def _reference_launcher_losses(arch_id, steps):
 
 @pytest.mark.parametrize("arch_id,port,rtol", [
     ("two-tower-retrieval", port_two_tower, 1e-4),
-    ("pna", port_pna, 1e-5)])
+    ("pna", port_pna, 1e-5),
+    ("sasrec", port_recsys, 1e-4)])
 def test_launcher_first_losses_equal_reference(arch_id, port, rtol):
     jparams, want = _reference_launcher_losses(arch_id, 5)
     arch = get_arch(arch_id)
@@ -336,5 +370,6 @@ def test_launcher_pna_resumes_and_logs_finite_losses(tmp_path, capsys):
 
 
 def test_launcher_arch_choices():
-    assert launch.TRAIN_ARCH_IDS == ["pna", "two-tower-retrieval"]
+    assert launch.TRAIN_ARCH_IDS == ["pna", "dien", "two-tower-retrieval",
+                                     "sasrec", "dcn-v2"]
     assert set(launch.TRAIN_ARCH_IDS) <= set(jlaunch.ARCH_IDS)

@@ -17,9 +17,13 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from repro_torch.convert import (adamw_state_from_arrays, graph_from_arrays,
-                                 pna_params_from_arrays, table_from_arrays,
+from repro_torch.convert import (adamw_state_from_arrays,
+                                 dcnv2_params_from_arrays,
+                                 dien_params_from_arrays, graph_from_arrays,
+                                 pna_params_from_arrays,
+                                 sasrec_params_from_arrays, table_from_arrays,
                                  two_tower_params_from_arrays)
+from repro_torch.models.recsys import DCNv2Config, DIENConfig, SASRecConfig
 
 # caption words of the random trees' regex leaves
 KW_WORDS = ["animal", "green", "blue", "city", "ocean"]
@@ -193,9 +197,19 @@ def port_two_tower(params, cfg, device="cpu"):
                                         device=device)
 
 
+def port_recsys(params, cfg, device="cpu"):
+    """The port's DIEN, SASRec or DCN-v2 (after ``cfg``'s type) from the
+    reference's ``init_dien`` / ``init_sasrec`` / ``init_dcnv2`` tree."""
+    conv = {DIENConfig: dien_params_from_arrays,
+            SASRecConfig: sasrec_params_from_arrays,
+            DCNv2Config: dcnv2_params_from_arrays}[type(cfg)]
+    return conv(_numpy_tree(params), cfg, device=device)
+
+
 def port_adamw_state(state, model, device="cpu"):
-    """The port's ``AdamWState`` for ``model`` (a ported ``TwoTower`` or
-    ``PNA``) from a reference ``AdamWState`` over the same parameters."""
+    """The port's ``AdamWState`` for ``model`` (a ported ``TwoTower``,
+    ``PNA``, ``DIEN``, ``SASRec`` or ``DCNv2``) from a reference
+    ``AdamWState`` over the same parameters."""
     return adamw_state_from_arrays(np.asarray(state.step),
                                    _numpy_tree(state.mu),
                                    _numpy_tree(state.nu), model,
