@@ -14,7 +14,9 @@
                             # sharded HCPS serving engine (n = 2^20) and
                             # the distributed paths on a one-rank NCCL
                             # mesh (acorn serve_1m and serve_25m, the
-                            # SPMD engine)
+                            # SPMD engine), and last the five LM arches
+                            # at full width (train_4k, prefill_32k,
+                            # decode_32k; gemma3's long_500k)
     python3 chip_smoke.py --baseline DIR   # also time the gather_distance.cu,
                             # neighbor_expand.cu, filtered_topk.cu and
                             # pna_aggregate.cu in DIR (an earlier version)
@@ -165,7 +167,7 @@ Phases, each printed on its own line:
            law with ``EDGE_CHUNK`` 2^18 (4 chunks) against CPU copies,
            then at full size (2,449,408 nodes, 61,859,328 edges, 196,615
            labelled): a no-grad forward, a warm-up step whose loss must
-           equal it within 1e-5, 5 counted steps (finite, falling), peak
+           equal it within 1e-5, 3 counted steps (finite, falling), peak
            memory and the data's host and transfer times.  Then the
            ``recsys`` part (``recsys_phases``): DIEN, SASRec and DCN-v2 at
            FULL width, weights from a seeded generator on the card, the
@@ -257,6 +259,32 @@ Phases, each printed on its own line:
            recompute; ms per call (cold L2), QPS, peak memory and the
            bound (bytes of corpus + masks at 3.35 TB/s against fp32 FLOPs
            at 67 TFLOP/s).
+  lm       the five LM arches (``lm_phases``) on a card the earlier phases
+           have emptied (``memory_allocated`` logged first), each at FULL
+           width (every published width, head count, expert count, top-k,
+           window and vocabulary; bf16 weights, attention in fp32 as the
+           reference's), depth cut in whole periods of the layer pattern
+           and batch cut where a cell would not fit (``LM_CUTS``); token
+           ids Zipf(1.1) over the vocabulary.  Per arch: step 1 of a
+           one-period model (1 layer; gemma3 6) with the whole embedding,
+           drawn in bf16 and cast to fp32 on the card, against an fp32
+           CPU copy on 1 x 64 tokens (``lm_parity``: logits and loss
+           within rtol 1e-5, gradients by the noise rule against float64
+           on the card, a prefill and 3 decode steps, one
+           ``adamw_update`` (the CPU holding the embedding's rows of the
+           tokens and the last layer's attention and norms), the bf16
+           train step against the fp32 one rounded to bf16; the bf16
+           model's relative L2 and MoE routing flips recorded);
+           ``train_4k`` (one warm-up and 3 counted steps: ms, tokens/s,
+           peak memory, losses finite, the first update lowering the loss
+           and later rises counted, 6·N·D); ``prefill_32k`` (a 1,024-token warm-up, one counted
+           32,768-token call: ms, tokens/s, peak, the fp32 attention's
+           FLOP count; MoE arches: two forwards with the same bits);
+           ``decode_32k`` and gemma3's ``long_500k`` (a cache filled from
+           the generator, 10 counted steps on its last rows: ms a step
+           beside the bytes a step reads at 3.35 TB/s); launch counters
+           zeroed before each counted run and read after: none of the
+           port's kernels may launch (``lm_launches`` in the record).
 The second-to-last lines are the ``{"kernels": [...]}`` record and the
 card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
@@ -368,7 +396,7 @@ ENGINE_N, ENGINE_D, ENGINE_SHARDS = 1 << 20, 512, 4
 ENGINE_M, ENGINE_GAMMA, ENGINE_M_BETA, ENGINE_EF_SEARCH = 16, 12, 32, 96
 ENGINE_BATCH, ENGINE_K = 32, 10
 # `contains` queries, correlation none, seed 1 (cut from 1,024 to fit the
-# run's time; the open loop serves a quarter as many requests of 4)
+# run's time)
 ENGINE_CLOSED = 512
 ENGINE_KIND_QUERIES = 64   # each of ENGINE_KINDS, seed 2
 ENGINE_KINDS = (("between", "none"), ("contains+between", "none"),
@@ -2939,27 +2967,43 @@ def peak_memory(dev, start: int) -> dict:
     return dict(peak_memory_bytes=peak, peak_above_start_bytes=peak - start)
 
 
-def grad_parity(card: dict, cpu: dict, cpu64: dict, rows: dict,
+def grad_parity(card: dict, cpu: dict, cpu64, rows: dict,
                 what: str, floor: float = GRAD_REL_FLOOR) -> dict:
     """Gradients of the card against a CPU copy's, the copy's own fp32
-    rounding measured against its float64 run: for each parameter the
-    relative L2 distance card-to-CPU must stay within ``GRAD_NOISE_FACTOR``
-    times the CPU's distance to float64, or ``floor``.  ``rows`` names,
-    per table, the card rows the copy holds.  Returns the worst ratios and
-    elementwise errors."""
+    rounding measured against its float64 run ``cpu64`` (on any device):
+    for each parameter the relative L2 distance card-to-CPU must stay
+    within ``GRAD_NOISE_FACTOR`` times the CPU's distance to float64, or
+    ``floor``; with ``cpu64=None``, within ``floor``.  ``rows`` names, per
+    table, the card rows the copy holds.  The distances run in float64 on
+    the card's device, ``NORM_CHUNK`` elements at a time, relative to the
+    float64 gradient's norm (without it, the CPU's).  Returns the worst
+    ratios and elementwise errors."""
+    import itertools
+    from repro_torch.train.optimizer import NORM_CHUNK
     out = {}
     for k, g in card.items():
-        g = (g[rows[k]] if k in rows else g).detach().cpu().double()
-        h, t = cpu[k].double(), cpu64[k]
-        norm = float(t.norm()) or 1.0
-        err_card = float((g - h).norm()) / norm
-        err_cpu = float((h - t).norm()) / norm
-        limit = max(floor, GRAD_NOISE_FACTOR * err_cpu)
+        g = (g[rows[k]] if k in rows else g).detach()
+
+        def parts(t):
+            return (c.to(g.device).double()
+                    for c in t.reshape(-1).split(NORM_CHUNK))
+        s, err_max = np.zeros(3), 0.0
+        for gc, hc, tc in zip(parts(g), parts(cpu[k]),
+                              itertools.repeat(None) if cpu64 is None
+                              else parts(cpu64[k])):
+            tc = hc if tc is None else tc
+            s += [float(((gc - hc) ** 2).sum()),
+                  float(((hc - tc) ** 2).sum()), float((tc ** 2).sum())]
+            err_max = max(err_max, float((gc - hc).abs().max()))
+        norm = float(np.sqrt(s[2])) or 1.0
+        err_card = float(np.sqrt(s[0])) / norm
+        err_cpu = None if cpu64 is None else float(np.sqrt(s[1])) / norm
+        limit = max(floor, GRAD_NOISE_FACTOR * (err_cpu or 0.0))
         if not err_card <= limit:
             raise AssertionError(
                 f"{what} gradient {k}: card vs CPU {err_card:.3g} > "
-                f"{limit:.3g} (CPU fp32 vs float64 {err_cpu:.3g})")
-        out[k] = (err_card, err_cpu, float((g - h).abs().max()))
+                f"{limit:.3g} (CPU fp32 vs float64 {err_cpu})")
+        out[k] = (err_card, err_cpu, err_max)
     worst = max(out, key=lambda k: out[k][0])
     return dict(worst_param=worst, worst_rel_l2=out[worst][0],
                 cpu_fp32_vs_fp64=out[worst][1],
@@ -2968,22 +3012,32 @@ def grad_parity(card: dict, cpu: dict, cpu64: dict, rows: dict,
 
 
 def update_parity(model, state, cpu_model, cpu_state, rows: dict,
-                  what: str) -> float:
+                  what: str, keys=None) -> float:
     """Parameters and moments after one ``adamw_update`` from the same
-    gradients on the card and on the CPU copy: within rtol 1e-5 and an
-    atol of 1e-6 of each tensor's largest magnitude (the same arithmetic;
-    the global norm's sum runs in another order).  Returns the largest
-    |err|."""
+    gradients on the card and on a CPU copy: within rtol 1e-5 and an atol
+    of 1e-6 of each tensor's largest magnitude (the same arithmetic; the
+    global norm's sum runs in another order), compared on the card.
+    ``cpu_model`` (a module or a mapping of named parameters) holds the
+    parameters named ``keys`` (by default every one of ``model``'s), and
+    ``rows`` names, per table, the card rows the copy holds.  Returns the
+    largest |err|."""
     import torch
+    from repro_torch.train.optimizer import named_tensors
     card = {"param": dict(model.named_parameters()), "mu": state.mu,
             "nu": state.nu}
-    cpu = {"param": dict(cpu_model.named_parameters()), "mu": cpu_state.mu,
+    cpu = {"param": named_tensors(cpu_model), "mu": cpu_state.mu,
            "nu": cpu_state.nu}
+    want = set(card["param"] if keys is None else keys)
+    for part, held in cpu.items():
+        if set(held) != want or not want:
+            raise AssertionError(f"{what}: the CPU copy's {part} holds "
+                                 f"{sorted(held)}, not {sorted(want)}")
     worst = 0.0
     for part in card:
-        for k, t in card[part].items():
-            got = (t[rows[k]] if k in rows else t).detach().cpu()
-            want = cpu[part][k].detach()
+        for k, want in cpu[part].items():
+            t = card[part][k].detach()
+            got = t[rows[k]] if k in rows else t
+            want = want.detach().to(got.device)
             atol = 1e-6 * float(want.abs().max())
             if not torch.allclose(got, want, rtol=1e-5, atol=atol):
                 over = (got - want).abs() - 1e-5 * want.abs()
@@ -4321,6 +4375,580 @@ def recsys_phases(dev, reduced: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# lm: the five LM arches, every cell at FULL width
+# ---------------------------------------------------------------------------
+
+LM_SEED = 11
+LM_ARCHES = ("smollm-360m", "qwen3-8b", "gemma3-27b", "deepseek-v2-lite-16b",
+             "moonshot-v1-16b-a3b")
+LM_TRAIN_STEPS = 3          # counted train_4k steps, after one warm-up
+LM_DECODE_STEPS = 10        # counted decode steps, on the cache's last rows
+LM_PARITY_TOKENS = 64       # step 1 of a one-period copy on 1 x 64 tokens
+#                             (cut from 256 for the run's time: gemma3's
+#                             copy took 77 s at 256 on an H100 machine, 36 s
+#                             of it on its 8-core host)
+LM_PARITY_DECODES = 3       # of them, the last 3 decoded after a prefill
+LM_WARMUP_PROMPT = 1024     # the prefill warm-up's prompt length
+LM_TOL = 1e-5               # rtol, and atol x the largest |value|
+# the bf16 train step may differ from the fp32 one rounded to bf16 on this
+# share of the entries the latter moves (its first update's signs; on an
+# NVIDIA H100 80GB HBM3: 0.67-1.83 % in lm_parity's 64 tokens, 1.04 % and
+# 1.14 % for qwen3 and gemma3 at the train cells' cut, tests/lm_probe.py;
+# an update gone wrong differs on about all of them)
+LM_BF16_STEP_TOL = 0.1
+PEAK_BF16_PER_S = 989e12    # H100 SXM data sheet, dense bf16
+# FULL width: every width, head count, expert count, top-k, window and
+# vocabulary as published; (layers, batch) of each cell, the layers in
+# whole periods of the layer pattern (gemma3's is 6: five local, one
+# global), cut so that the cell fits one 80 GB card; the prefills of
+# gemma3 and moonshot are cut further for the run's time (on an NVIDIA
+# H100 80GB HBM3 a 32,768-token prefill takes 0.25 s a layer at 15 heads,
+# 0.36-0.40 s at 16 and 0.69-0.72 s at 32, most of it the fp32 scores'
+# GEMMs and passes over them, the same in every layer)
+LM_CUTS = {
+    "smollm-360m": {"train_4k": (32, 8), "prefill_32k": (32, 1),
+                    "decode_32k": (32, 32)},
+    "qwen3-8b": {"train_4k": (8, 2), "prefill_32k": (36, 1),
+                 "decode_32k": (36, 8)},
+    "gemma3-27b": {"train_4k": (6, 1), "prefill_32k": (6, 1),
+                   "decode_32k": (62, 1), "long_500k": (12, 1)},
+    "deepseek-v2-lite-16b": {"train_4k": (4, 2), "prefill_32k": (27, 1),
+                             "decode_32k": (27, 8)},
+    "moonshot-v1-16b-a3b": {"train_4k": (4, 2), "prefill_32k": (8, 1),
+                            "decode_32k": (48, 1)},
+}
+
+
+def lm_period(cfg) -> int:
+    """Layers of one period of the layer pattern (6 for 5:1 local:global,
+    else 1)."""
+    return cfg.local_ratio + 1 if cfg.window and cfg.local_ratio else 1
+
+
+def lm_plan(arch_id: str, reduced: bool) -> dict:
+    """{cell: (config, batch, seq)} of the arch's cells that run: FULL
+    width cut as ``LM_CUTS`` says, or the REDUCED config and shapes."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_common import LM_SHAPES, REDUCED_SHAPES
+    arch = get_arch(arch_id)
+    cfg = arch.config(reduced=reduced)
+    cells = [c.shape for c in arch.cells() if c.skip is None]
+    out = {}
+    for shape in cells:
+        if reduced:
+            spec = REDUCED_SHAPES[shape]
+            out[shape] = (cfg, spec["batch"], spec["seq"])
+            continue
+        layers, b = LM_CUTS[arch_id][shape]
+        if layers != cfg.n_layers and layers % lm_period(cfg):
+            raise AssertionError(f"{arch_id} {shape}: a cut to {layers} "
+                                 "layers is not a whole number of periods")
+        out[shape] = (dataclasses.replace(cfg, n_layers=layers), b,
+                      LM_SHAPES[shape]["seq"])
+    return out
+
+
+def lm_tokens(rng, zipf, shape) -> "np.ndarray":
+    """Token ids of a Zipf(``ZIPF_EXPONENT``) law over the vocabulary (real
+    text repeats its common tokens, and the embedding's backward feels
+    those repeats), int32."""
+    return zipf.draw(rng, shape).astype(np.int32)
+
+
+def recorded_routes(into: list):
+    """A context in which every ``moe_route`` call appends its (T, k)
+    expert ids, on the CPU, to ``into``."""
+    import contextlib
+    from repro_torch.models import transformer as tt
+
+    @contextlib.contextmanager
+    def ctx():
+        real = tt.moe_route
+
+        def rec(cfg, lp, xf):
+            w, i = real(cfg, lp, xf)
+            into.append(i.cpu())
+            return w, i
+        tt.moe_route = rec
+        try:
+            yield
+        finally:
+            tt.moe_route = real
+    return ctx()
+
+
+def routing_flips(a: list, b: list) -> int:
+    """(token, layer) pairs whose set of top-k experts differs."""
+    return sum(int((x.sort(dim=-1).values != y.sort(dim=-1).values)
+                   .any(dim=-1).sum()) for x, y in zip(a, b))
+
+
+def assert_lm_close(got, want, what: str) -> float:
+    """``got`` (any device) within rtol ``LM_TOL`` and an atol of
+    ``LM_TOL`` times the largest |want| of ``want`` (CPU); returns the
+    largest |err|."""
+    import torch
+    got = got.detach().cpu().to(want.dtype)
+    atol = LM_TOL * float(want.abs().max())
+    if not torch.allclose(got, want, rtol=LM_TOL, atol=atol):
+        bad = (got - want).abs() - LM_TOL * want.abs()
+        i = int(bad.argmax())
+        raise AssertionError(f"{what}: card {float(got.flatten()[i])} vs CPU "
+                             f"{float(want.flatten()[i])} (atol {atol:.3g})")
+    return float((got - want).abs().max())
+
+
+def lm_parity(dev, arch_id: str, cfg, n_tokens: int = LM_PARITY_TOKENS
+              ) -> dict:
+    """Step 1 of a model cut to one period of ``cfg`` (the embedding
+    whole), drawn in bf16 on ``dev`` and cast to fp32 there, against an
+    fp32 CPU copy, on 1 x ``n_tokens`` Zipf tokens: the logits and the
+    loss within rtol ``LM_TOL``; every gradient by the noise rule
+    (:func:`grad_parity`; float64 on ``dev`` when a gradient stands more
+    than ``GRAD_REL_FLOOR`` from the CPU's); a prefill of all but the last
+    ``LM_PARITY_DECODES`` tokens, which are then decoded (logits and
+    caches); one ``adamw_update`` of every parameter from the card's
+    gradients, the CPU copy updating the embedding's rows of the tokens
+    and one row they do not touch, its last layer's attention, norms and
+    router and its final norm from those gradients (the clip scale's norm
+    over every gradient, the others the CPU's own) to be held to the
+    card's.  Recorded, not gated: the bf16 model's relative L2 to the
+    fp32 one and its MoE routing flips.  Runs without ``remat`` (the same
+    arithmetic)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.common import cross_entropy, set_named_params
+    from repro_torch.train import adamw_update, init_adamw, value_and_grad
+    arch = get_arch(arch_id)
+    c16 = dataclasses.replace(cfg, n_layers=lm_period(cfg), remat=False,
+                              dtype=torch.bfloat16)
+    c32 = dataclasses.replace(c16, dtype=torch.float32)
+    rng = np.random.default_rng(LM_SEED + 1)
+    ids = torch.from_numpy(lm_tokens(rng, ZipfIds(rng, cfg.vocab),
+                                     (1, n_tokens + 1)))
+    batch = {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    logits = {}
+
+    def loss_fn(name):
+        def loss(model, b):
+            out = tt.forward(c32, model, b["tokens"])
+            logits[name] = out.detach()
+            return cross_entropy(out, b["labels"])
+        return loss
+
+    laps, clock = {}, [time.perf_counter()]
+
+    def lap(stage):
+        now = time.perf_counter()
+        laps[stage] = round(now - clock[0], 3)
+        clock[0] = now
+
+    m16 = arch.init(c16, torch.Generator(device=dev).manual_seed(LM_SEED),
+                    device=dev)
+    r16, r32 = [], []
+    with torch.no_grad(), recorded_routes(r16):
+        logits16 = tt.forward(c16, m16, card_batch["tokens"])
+    m32 = set_named_params(arch.module(c32), {
+        k: p.float() for k, p in m16.named_parameters()})
+    del m16
+    with recorded_routes(r32):
+        loss_c, grads_c = value_and_grad(loss_fn("card"), m32, card_batch)
+    bf16_rel_l2 = float((logits16 - logits["card"]).norm()
+                        / logits["card"].norm())
+    del logits16
+    lap("card")
+    cpu = set_named_params(arch.module(c32), {
+        k: p.detach().to("cpu", copy=True)
+        for k, p in m32.named_parameters()})
+    lap("copy")
+    loss_h, grads_h = value_and_grad(loss_fn("cpu"), cpu, batch)
+    lap("cpu")
+    if not abs(float(loss_c) - float(loss_h)) <= LM_TOL * abs(float(loss_h)):
+        raise AssertionError(f"{arch_id} loss card {float(loss_c)} vs CPU "
+                             f"{float(loss_h)}")
+    rec = dict(layers=c32.n_layers, tokens=n_tokens,
+               loss_card=float(loss_c), loss_cpu=float(loss_h),
+               logits_max_abs_err=assert_lm_close(
+                   logits.pop("card"), logits.pop("cpu"),
+                   f"{arch_id} logits"),
+               bf16_vs_fp32_rel_l2=bf16_rel_l2,
+               bf16_routing_flips=routing_flips(r16, r32))
+
+    # serving: a prefill of the first tokens, then the last ones decoded
+    p = n_tokens - LM_PARITY_DECODES
+    serve = {}
+    with torch.no_grad():
+        for name, model, dv in (("card", m32, dev),
+                                ("cpu", cpu, torch.device("cpu"))):
+            tok = batch["tokens"].to(dv)
+            out, cache = tt.prefill(c32, model, tok[:, :p], n_tokens)
+            outs = [out]
+            for i in range(p, n_tokens):
+                out, cache = tt.decode_step(c32, model, cache,
+                                            tok[:, i:i + 1],
+                                            torch.tensor(i, device=dv))
+                outs.append(out)
+            serve[name] = (outs, cache)
+    serve_err = max(
+        [assert_lm_close(a, b, f"{arch_id} prefill/decode logits {i}")
+         for i, (a, b) in enumerate(zip(serve["card"][0], serve["cpu"][0]))]
+        + [assert_lm_close(a, b, f"{arch_id} cache")
+           for a, b in zip(serve["card"][1], serve["cpu"][1])])
+    del serve
+    lap("serve")
+
+    # gradients; their float64 run (on dev, the fp32 model set aside) only
+    # when a gradient stands beyond the floor
+    try:
+        gpar = grad_parity(grads_c, grads_h, None, {}, arch_id)
+    except AssertionError:
+        grads_c = {k: g.cpu() for k, g in grads_c.items()}
+        del m32
+        free(dev)
+        c64 = dataclasses.replace(c32, dtype=torch.float64)
+        copy64 = set_named_params(arch.module(c64), {
+            k: p.to(dev, torch.float64) for k, p in cpu.named_parameters()})
+        _, g64 = value_and_grad(arch.loss_fn(c64, "train_4k"), copy64,
+                                card_batch)
+        del copy64
+        grads_c = {k: g.to(dev) for k, g in grads_c.items()}
+        gpar = grad_parity(grads_c, grads_h, g64, {}, arch_id)
+        del g64
+        free(dev)
+        m32 = set_named_params(arch.module(c32), {
+            k: p.to(dev, copy=True) for k, p in cpu.named_parameters()})
+    lap("gradients")
+
+    # one adamw_update from the card's gradients
+    opt = init_adamw(m32)
+    _, opt = adamw_update(arch.opt, grads_c, opt, m32)
+    # the CPU updates the embedding's rows of the tokens and one row they
+    # do not touch (the card walks that table NORM_CHUNK elements at a
+    # time), the last layer's attention, norms and router, and the final
+    # norm (its FFN or experts would cost seconds of host time for the
+    # same elementwise arithmetic) from the card's gradients; its clip
+    # scale's norm takes the others from its own gradients, which the rule
+    # above held within 1e-5 of the card's (no 15.6 GB copy of gemma3's)
+    touched = ids.unique().long()
+    spare = np.setdiff1d(np.arange(len(touched) + 1), touched.numpy())[0]
+    rows = {"embed": torch.cat([touched, torch.tensor([int(spare)])])
+            .sort().values}
+    ffn = ("w_gate", "w_up", "w_down", "ws_gate", "ws_up", "ws_down")
+    keys = ["embed", "final_norm"] + [
+        f"layers.{c32.n_layers - 1}.{k}"
+        for k, _ in m32.layers[-1].named_parameters() if k not in ffn]
+    named = dict(cpu.named_parameters())
+    cpu_params = {k: named[k][rows[k]] if k in rows else named[k]
+                  for k in keys}
+    # the CPU's own embedding gradient, its updated rows zeroed, stands in
+    # the norm for the rows the copy does not hold
+    grads_h["embed (other rows)"] = grads_h.pop("embed").index_fill_(
+        0, rows["embed"], 0.0)
+    grads_h.update({k: (grads_c[k][rows[k]] if k in rows else grads_c[k])
+                    .cpu() for k in keys})
+    cpu_opt = init_adamw(cpu_params)
+    _, cpu_opt = adamw_update(arch.opt, grads_h, cpu_opt, cpu_params)
+    del grads_h
+    upd_err = update_parity(m32, opt, cpu_params, cpu_opt, rows, arch_id,
+                            keys=keys)
+    rec.update(adamw_update_params=len(cpu_params),
+               adamw_update_embed_rows=len(rows["embed"]))
+    del cpu, cpu_opt, cpu_params, grads_c, named
+    # the bf16 train step from the same weights (drawn again) against this
+    # fp32 step rounded to bf16: Adam's first update is about the sign of
+    # each gradient, so the two differ only where bf16 rounding turned a
+    # gradient's sign or routed a token elsewhere
+    ref = {k: p.detach().to(torch.bfloat16) for k, p in m32.named_parameters()}
+    del m32, opt
+    free(dev)
+    m16 = arch.init(c16, torch.Generator(device=dev).manual_seed(LM_SEED),
+                    device=dev)
+    moved = sum(int((ref[k] != p).sum()) for k, p in m16.named_parameters())
+    arch.step_fn(c16, "train_4k")(m16, init_adamw(m16), card_batch)
+    differ = sum(int((ref[k] != p).sum()) for k, p in m16.named_parameters())
+    rec["bf16_step"] = dict(
+        entries=sum(p.numel() for p in ref.values()), moved_by_fp32=moved,
+        differ=differ, differ_share_of_moved=differ / max(moved, 1))
+    if not (moved and differ <= LM_BF16_STEP_TOL * moved):
+        raise AssertionError(f"{arch_id}: the bf16 train step differs from "
+                             f"the fp32 one rounded on {differ} entries of "
+                             f"the {moved} it moves")
+    del m16, ref
+    free(dev)
+    lap("adamw")
+    rec.update(prefill_decode_max_abs_err=serve_err, gradients=gpar,
+               adamw_update_max_abs_err=upd_err, stage_s=laps,
+               seconds=round(sum(laps.values()), 3))
+    log("parity", path=f"{arch_id} step 1 (one period, fp32)", **rec)
+    return rec
+
+
+def lm_init(dev, arch_id: str, cfg, seed: int):
+    """The arch's model for ``cfg`` on ``dev``, drawn from a seeded
+    generator there; (model, seconds)."""
+    import torch
+    from repro_torch.configs import get_arch
+    t0 = time.perf_counter()
+    model = get_arch(arch_id).init(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    sync(dev)
+    return model, time.perf_counter() - t0
+
+
+def free(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def lm_train(dev, arch_id: str, cfg, b: int, s: int, rng, zipf) -> dict:
+    """``train_4k``: one warm-up and ``LM_TRAIN_STEPS`` counted steps of the
+    arch's step (AdamW's defaults, as the reference's) on one (b, s) batch
+    of next-token pairs: step ms, tokens/s, peak memory, 6·N·D beside the
+    step time, and every loss: finite, the first update (the smallest
+    learning rate of the warm-up) lowering it.  Later steps may raise it
+    and are counted (``loss_rises``, beyond ``LOSS_RISE_RTOL``): Adam's
+    first updates move each weight by about the learning rate, and on one
+    batch at full width they overshoot.  ``tests/lm_probe.py`` ran this
+    cell's steps from the same weights and batch on an NVIDIA H100 80GB
+    HBM3: qwen3 and gemma3 rise on the third update in bf16 and already on
+    the second in fp32, where every entry moves (bf16 rounding keeps ~95 %
+    of them still); the bf16 step's check is ``lm_parity``'s."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_common import model_flops
+    from repro_torch.train import init_adamw
+    arch = get_arch(arch_id)
+    mem0 = reset_peak(dev)
+    model, init_s = lm_init(dev, arch_id, cfg, LM_SEED + 3)
+    ids = torch.from_numpy(lm_tokens(rng, zipf, (b, s + 1))).to(dev)
+    batch = {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+    step = arch.step_fn(cfg, "train_4k")
+    opt = init_adamw(model)
+    t0 = time.perf_counter()
+    _, opt, loss0 = step(model, opt, batch)
+    sync(dev)
+    warm_s = time.perf_counter() - t0
+    opt, ms, losses, launches = counted_steps(
+        dev, step, model, opt, batch, LM_TRAIN_STEPS, f"{arch_id} train_4k")
+    seq = [float(loss0)] + losses
+    if not seq[1] < seq[0]:
+        raise AssertionError(f"{arch_id} train_4k: the first step did not "
+                             f"lower the loss: {seq}")
+    rises = sum(b2 > a2 + LOSS_RISE_RTOL * abs(a2)
+                for a2, b2 in zip(seq, seq[1:]))
+    p50 = float(np.percentile(ms, 50))
+    flops = model_flops(cfg, b * s, train=True)
+    rec = dict(layers=cfg.n_layers, batch=b, seq=s, steps=LM_TRAIN_STEPS,
+               init_s=round(init_s, 3), warmup_step_s=round(warm_s, 3),
+               step_p50_ms=round(p50, 3), step_max_ms=round(max(ms), 3),
+               tokens_per_s=round(b * s / p50 * 1e3, 1),
+               **peak_memory(dev, mem0), loss_warmup=float(loss0),
+               losses=[round(v, 6) for v in losses], loss_rises=rises,
+               model_flops=flops,
+               bf16_bound_ms=round(flops / PEAK_BF16_PER_S * 1e3, 3),
+               kernel_launches=launches)
+    del model, opt, batch, ids
+    free(dev)
+    log("lm", arch=arch_id, shape="train_4k", **rec)
+    return rec
+
+
+def attention_flops(cfg, b: int, sq: int, sk: int) -> float:
+    """The fp32 operations of the reference's attention over ``cfg``'s
+    layers: q.k and p.v over every (query, key) pair, masked or not."""
+    hdk = cfg.head_dim + (cfg.rope_head_dim if cfg.is_mla else 0)
+    return 2.0 * b * sq * sk * cfg.n_heads * (hdk + cfg.vdim()) * cfg.n_layers
+
+
+def lm_prefill(dev, arch_id: str, cfg, b: int, s: int, rng, zipf) -> dict:
+    """``prefill_32k``: a warm-up of ``LM_WARMUP_PROMPT`` tokens, then one
+    counted call on a (b, s) prompt: ms, tokens/s, peak memory, the fp32
+    attention's and the bf16 GEMMs' FLOP counts beside it; logits finite,
+    the cache as long as the prompt.  MoE arches: two forwards of the
+    warm-up prompt give the same bits."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_common import model_flops
+    from repro_torch.models import transformer as tt
+    arch = get_arch(arch_id)
+    mem0 = reset_peak(dev)
+    model, init_s = lm_init(dev, arch_id, cfg, LM_SEED + 4)
+    step = arch.step_fn(cfg, "prefill_32k")
+    warm = torch.from_numpy(lm_tokens(rng, zipf, (b, min(LM_WARMUP_PROMPT,
+                                                         s)))).to(dev)
+    step(model, {"tokens": warm})
+    rec = dict(layers=cfg.n_layers, batch=b, seq=s, init_s=round(init_s, 3))
+    if cfg.is_moe:
+        with torch.no_grad():
+            a = tt.forward(cfg, model, warm)
+            same = torch.equal(a, tt.forward(cfg, model, warm))
+        if not same:
+            raise AssertionError(f"{arch_id}: two MoE forwards differ")
+        rec["moe_forward_bit_identical"] = same
+        del a
+    tok = torch.from_numpy(lm_tokens(rng, zipf, (b, s))).to(dev)
+    sync(dev)
+    counters = zero_launches()
+    t0 = time.perf_counter()
+    logits, cache = step(model, {"tokens": tok})
+    sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = check_no_launches(counters, f"{arch_id} prefill_32k")
+    if tuple(logits.shape) != (b, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch_id} prefill: logits not (b, V) finite")
+    if cache[0].shape[:3] != (cfg.n_layers, b, s):
+        raise AssertionError(f"{arch_id} prefill: cache {cache[0].shape}")
+    attn = attention_flops(cfg, b, s, s)
+    gemm = model_flops(cfg, b * s)
+    rec.update(ms=round(ms, 3), tokens_per_s=round(b * s / ms * 1e3, 1),
+               **peak_memory(dev, mem0), attention_fp32_flops=attn,
+               attention_fp32_bound_ms=round(attn / PEAK_FP32_PER_S * 1e3, 3),
+               model_flops=gemm,
+               gemm_bf16_bound_ms=round(gemm / PEAK_BF16_PER_S * 1e3, 3),
+               kernel_launches=launches)
+    del model, logits, cache, tok, warm
+    free(dev)
+    log("lm", arch=arch_id, shape="prefill_32k", **rec)
+    return rec
+
+
+def decode_bytes(cfg, model, cache, experts_read) -> float:
+    """Bytes one decode step must read: every weight (the tied embedding
+    once, as the head; of the routed experts only the ``experts_read``
+    (layer, expert) pairs the step's tokens reach) and the whole cache
+    (the reference attends all Smax rows under the mask)."""
+    total = 0
+    for name, p in model.named_parameters():
+        if name.rsplit(".", 1)[-1] in ("w_gate", "w_up", "w_down") \
+                and cfg.is_moe:
+            continue
+        total += p.numel() * p.element_size()
+    if cfg.is_moe:
+        total += experts_read * 3 * cfg.d_model * cfg.d_expert * (
+            model.embed.element_size())
+    return float(total + sum(c.numel() * c.element_size() for c in cache))
+
+
+def lm_decode(dev, arch_id: str, shape: str, cfg, b: int, smax: int, rng,
+              zipf) -> dict:
+    """``decode_32k`` / ``long_500k``: a (b, smax) cache filled from the
+    generator, one warm-up step at row smax - ``LM_DECODE_STEPS`` - 1, then
+    ``LM_DECODE_STEPS`` counted steps on the last rows: ms per step, peak
+    memory, the bytes a step reads (weights and cache) beside the step
+    time as its bound at 3.35 TB/s; logits finite, the cache written in
+    place."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tt
+    arch = get_arch(arch_id)
+    mem0 = reset_peak(dev)
+    model, init_s = lm_init(dev, arch_id, cfg, LM_SEED + 5)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 6)
+    cache = tt.init_cache(cfg, b, smax, dev)
+    for c in cache:
+        c.normal_(generator=gen)
+    sync(dev)
+    fill_s = time.perf_counter() - t0
+    step = arch.step_fn(cfg, "decode_32k")
+    first = smax - LM_DECODE_STEPS - 1
+    toks = torch.from_numpy(lm_tokens(rng, zipf, (LM_DECODE_STEPS + 1, b,
+                                                  1))).to(dev)
+    pos = torch.arange(first, smax, device=dev, dtype=torch.int32)
+    routes = []
+    with recorded_routes(routes):
+        step(model, cache, {"tokens": toks[0], "pos": pos[0]})
+    experts = sum(int(r.unique().numel()) for r in routes)
+    sync(dev)
+    counters = zero_launches()
+    ms = []
+    for i in range(1, LM_DECODE_STEPS + 1):
+        t1 = time.perf_counter()
+        logits, out = step(model, cache, {"tokens": toks[i], "pos": pos[i]})
+        sync(dev)
+        ms.append((time.perf_counter() - t1) * 1e3)
+    launches = check_no_launches(counters, f"{arch_id} {shape}")
+    if out[0] is not cache[0] or out[1] is not cache[1]:
+        raise AssertionError(f"{arch_id} {shape}: the cache was copied")
+    if tuple(logits.shape) != (b, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch_id} {shape}: logits not (b, V) finite")
+    p50 = float(np.percentile(ms, 50))
+    nbytes = decode_bytes(cfg, model, cache, experts)
+    rec = dict(layers=cfg.n_layers, batch=b, cache_rows=smax,
+               steps=LM_DECODE_STEPS, init_s=round(init_s, 3),
+               cache_fill_s=round(fill_s, 3), step_p50_ms=round(p50, 3),
+               step_max_ms=round(max(ms), 3),
+               tokens_per_s=round(b / p50 * 1e3, 1),
+               **peak_memory(dev, mem0), bytes_per_step=nbytes,
+               bytes_bound_ms=round(nbytes / PEAK_BYTES_PER_S * 1e3, 3),
+               kernel_launches=launches)
+    if cfg.is_moe:
+        rec["experts_read"] = experts
+    del model, cache, logits, out
+    free(dev)
+    log("lm", arch=arch_id, shape=shape, **rec)
+    return rec
+
+
+def lm_arch(dev, arch_id: str, reduced: bool = False) -> dict:
+    """One arch: step-1 parity of a one-period copy, then every cell that
+    runs (``lm_plan``), each on its own model (the one before freed)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch_id).config(reduced=reduced)
+    rng = np.random.default_rng(LM_SEED)
+    zipf = ZipfIds(rng, cfg.vocab)
+    out = dict(parity=lm_parity(dev, arch_id, cfg,
+                                24 if reduced else LM_PARITY_TOKENS))
+    for shape, (c, b, s) in lm_plan(arch_id, reduced).items():
+        t0 = time.perf_counter()
+        if shape == "train_4k":
+            out[shape] = lm_train(dev, arch_id, c, b, s, rng, zipf)
+        elif shape == "prefill_32k":
+            out[shape] = lm_prefill(dev, arch_id, c, b, s, rng, zipf)
+        else:
+            out[shape] = lm_decode(dev, arch_id, shape, c, b, s, rng, zipf)
+        out[shape]["seconds"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+def lm_phases(dev, reduced: bool = False) -> dict:
+    """The ``lm`` part: the five LM arches, every cell that runs at FULL
+    width (bf16 weights; fp32 attention and fp32 products elsewhere: TF32
+    stays off); none of the port's kernels launches (the LM path has no
+    kernel of its own: the reference's attention, MoE dispatch, RoPE and
+    RMS norm are plain ``jnp``)."""
+    import torch
+    t0 = time.perf_counter()
+    log("lm", memory_allocated=(torch.cuda.memory_allocated(dev)
+                                if dev.type == "cuda" else None),
+        reduced=reduced,
+        tf32=bool(torch.backends.cuda.matmul.allow_tf32))
+    out = {}
+    for arch_id in LM_ARCHES:
+        t1 = time.perf_counter()
+        out[arch_id] = lm_arch(dev, arch_id, reduced)
+        out[arch_id]["seconds"] = round(time.perf_counter() - t1, 1)
+        log("lm", arch=arch_id, seconds=out[arch_id]["seconds"])
+    out["seconds"] = time.perf_counter() - t0
+    names = [fn.__name__ for fn in all_launchers()]
+    out["kernel_launches"] = {
+        name: sum(rec["kernel_launches"][name]
+                  for a in LM_ARCHES for cell, rec in out[a].items()
+                  if cell != "parity" and isinstance(rec, dict))
+        for name in names}
+    log("lm", part="lm", seconds=f"{out['seconds']:.1f}",
+        kernel_launches=out["kernel_launches"])
+    return out
+
+
 def all_launchers() -> list:
     """The launch-counted wrapper of every kernel of the port."""
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda
@@ -4659,6 +5287,14 @@ def main(argv=None) -> int:
     log("mesh", acorn_ms={str(k_): v for k_, v in acorn_ms.items()},
         seconds=f"{time.perf_counter() - t0:.1f}")
     dist.destroy_process_group()
+
+    # ---- lm: the five LM arches at full width, on a card emptied first ----
+    del flush, one, q_odd, nodes, qs, ms, ids_c, d_c, sel, graph_calls, cases
+    del empty
+    torch.cuda.empty_cache()
+    lm = lm_phases(dev)
+    for rcd in records:   # the LM path runs none of the port's kernels
+        rcd["lm_launches"] = lm["kernel_launches"][rcd["name"] + "_cuda"]
 
     log("total", seconds=f"{time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": records}))

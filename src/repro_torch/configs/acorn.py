@@ -23,7 +23,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.collectives import Mesh, all_gather_cat, top_k
 
-from .lm_common import CellDef, TensorSpec
+from .specs import CellDef, TensorSpec
 
 ACORN_SHAPES: Dict[str, Dict] = {
     "serve_1m": dict(kind="serve", batch=512, n=1 << 20, d=512, k=10),

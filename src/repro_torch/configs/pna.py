@@ -33,7 +33,7 @@ from repro_torch.models.gnn import (PNA, PNAConfig, forward_minibatch,
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.optimizer import AdamWConfig, adamw_specs
 
-from .lm_common import CellDef, TensorSpec, param_specs
+from .specs import CellDef, TensorSpec, param_specs
 
 
 def _pad(n, m):

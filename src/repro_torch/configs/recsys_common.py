@@ -20,7 +20,7 @@ import torch
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.optimizer import AdamWConfig, AdamWState
 
-from .lm_common import CellDef, TensorSpec, param_specs
+from .specs import CellDef, TensorSpec, param_specs
 
 RECSYS_SHAPES: Dict[str, Dict] = {
     "train_batch": dict(kind="train", batch=65536),

@@ -1,8 +1,8 @@
 """Carry the JAX reference's state across, as numpy arrays.
 
 The JAX package's ``LayeredGraph``, ``AttributeTable``, oracle
-partitions, serving-engine shards, model parameter trees and AdamW
-states are turned
+partitions, serving-engine shards, model parameter trees (the LM's
+stacked layers sliced per layer) and AdamW states are turned
 into numpy by the caller (``np.asarray`` on each field or leaf); these
 functions build the port's
 counterparts from that numpy alone, so this module never needs JAX.  The
@@ -26,6 +26,7 @@ from repro_torch.models.common import set_named_params
 from repro_torch.models.recsys import (DCNv2, DCNv2Config, DIEN, DIENConfig,
                                        SASRec, SASRecConfig, TwoTower,
                                        TwoTowerConfig, set_two_tower_params)
+from repro_torch.models.transformer import Transformer, TransformerConfig
 from repro_torch.serve.engine import EngineConfig, ServingEngine
 from repro_torch.train.optimizer import AdamWState
 
@@ -240,8 +241,34 @@ def dcnv2_params_from_arrays(tree: Mapping, cfg: DCNv2Config,
     return _same_layout(tree, DCNv2, cfg, device)
 
 
+def _lm_arrays(tree: Mapping) -> Dict[str, np.ndarray]:
+    """A reference LM tree (``embed``, ``final_norm`` and ``layers``, a
+    dict of (L, ...) stacked arrays) as ``{port parameter name: array}``:
+    ``layers.{i}.{name}`` is slice i of ``layers[name]``; same layouts."""
+    out = {"embed": np.asarray(tree["embed"]),
+           "final_norm": np.asarray(tree["final_norm"])}
+    for name, stacked in tree["layers"].items():
+        stacked = np.asarray(stacked)
+        for i in range(stacked.shape[0]):
+            out[f"layers.{i}.{name}"] = stacked[i]
+    return out
+
+
+def lm_params_from_arrays(tree: Mapping, cfg: TransformerConfig,
+                          device: DeviceLike = "cuda") -> Transformer:
+    """A :class:`Transformer` that computes what the reference's
+    ``init_lm`` parameter tree computes: ``embed`` (V, d), ``final_norm``
+    (d,) and ``layers``, a dict of arrays stacked over the layers ((L, d,
+    ...) each; numpy leaves, bf16 ones included), sliced into the
+    per-layer modules in ``cfg.dtype``."""
+    dev = resolve_device(device)
+    return set_named_params(Transformer(cfg), {
+        k: _tensor(a, dev, cfg.dtype) for k, a in _lm_arrays(tree).items()})
+
+
 _LAYOUTS = {TwoTower: _two_tower_arrays, PNA: _pna_arrays,
-            DIEN: _flat_arrays, SASRec: _flat_arrays, DCNv2: _flat_arrays}
+            DIEN: _flat_arrays, SASRec: _flat_arrays, DCNv2: _flat_arrays,
+            Transformer: _lm_arrays}
 
 
 def param_arrays(tree: Mapping, model: torch.nn.Module
@@ -249,8 +276,8 @@ def param_arrays(tree: Mapping, model: torch.nn.Module
     """A reference tree over ``model``'s parameters (the parameters
     themselves, their gradients or a moment; numpy leaves) as
     ``{port parameter name: array}``, in the port's layouts.  ``model`` is
-    a :class:`TwoTower`, :class:`PNA`, :class:`DIEN`, :class:`SASRec` or
-    :class:`DCNv2`."""
+    a :class:`TwoTower`, :class:`PNA`, :class:`DIEN`, :class:`SASRec`,
+    :class:`DCNv2` or :class:`Transformer`."""
     named = _LAYOUTS[type(model)](tree)
     if sorted(named) != sorted(k for k, _ in model.named_parameters()):
         raise ValueError("the tree's keys do not match the model's "

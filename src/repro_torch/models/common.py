@@ -1,6 +1,6 @@
 """Parameter initialisers, losses, the reference's public helpers
-(``mlp``, ``layer_norm``, ``swiglu``) and its ``jnp`` row indexing
-(``take_rows``), shared by the models.
+(``mlp``, ``layer_norm``, ``rms_norm``, ``swiglu``, RoPE) and its ``jnp``
+row indexing (``take_rows``), shared by the models.
 
 Each initialiser draws from a ``torch.Generator`` on the target device (the
 tensors are made on the generator's device).  Torch cannot reproduce
@@ -45,6 +45,42 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
     y = (x - mu) * torch.rsqrt(var + eps)
     return (y * w.to(ct) + b.to(ct)).to(dt)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last axis with the ``(1 + w)`` gain (``w`` starts
+    at zero), computed in fp32 (float64 stays float64) and cast back to
+    ``x``'s dtype, as the reference's."""
+    dt = x.dtype
+    ct = torch.promote_types(dt, torch.float32)
+    x = x.to(ct)
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.to(ct))).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float = 1e4,
+               device=None) -> torch.Tensor:
+    """(head_dim / 2,) fp32 rotation frequencies ``theta^(-2i / hd)``."""
+    i = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (i / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x (..., S, H, hd), positions (..., S) -> x rotated, in ``x``'s
+    dtype.  Interleaved pairs rotate (``x[..., ::2]``, ``x[..., 1::2]``,
+    stacked back as pairs), not the two halves of HF's ``rotate_half``;
+    computed in fp32 (float64 stays float64)."""
+    hd = x.shape[-1]
+    ct = torch.promote_types(x.dtype, torch.float32)
+    freqs = rope_freqs(hd, theta, x.device)
+    ang = positions[..., :, None, None].to(torch.float32) * freqs
+    cos, sin = torch.cos(ang).to(ct), torch.sin(ang).to(ct)
+    xf = x.to(ct)
+    x1, x2 = xf[..., ::2], xf[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -21,7 +21,7 @@ from typing import Dict, Mapping, NamedTuple, Union
 import torch
 from torch import nn
 
-from repro_torch.configs.lm_common import TensorSpec
+from repro_torch.configs.specs import TensorSpec
 
 Tensor = torch.Tensor
 Params = Union[nn.Module, Mapping[str, Tensor]]
@@ -76,7 +76,8 @@ def init_adamw(params: Params) -> AdamWState:
                       mu=mu, nu=nu)
 
 
-# elements of a gradient squared and summed at once by global_norm
+# elements of a gradient squared and summed at once by global_norm, and of
+# a parameter updated at once by adamw_update
 NORM_CHUNK = 1 << 26
 
 
@@ -104,22 +105,36 @@ def adamw_update(cfg: AdamWConfig, grads: Mapping[str, Tensor],
     c1 = 1.0 - torch.pow(cfg.b1, step.float())
     c2 = 1.0 - torch.pow(cfg.b2, step.float())
     for name, p in named.items():
-        m, v = state.mu[name], state.nu[name]
-        # in the reference's order of operations; g and t are scratch
-        g = grads[name].float() * scale
-        m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
-        t = (g * (1 - cfg.b2)).mul_(g)
-        v.mul_(cfg.b2).add_(t)
-        torch.div(v, c2, out=t).sqrt_().add_(cfg.eps)
-        torch.div(m, c1, out=g).div_(t)                  # the Adam direction
-        del t
-        p32 = p.float()
-        g.add_(p32 * cfg.weight_decay).mul_(lr)
-        if p.dtype == torch.float32:
-            p.sub_(g)
+        parts = (p, state.mu[name], state.nu[name], grads[name])
+        if all(t.is_contiguous() for t in parts[:3]):
+            # NORM_CHUNK elements at a time: the fp32 scratch of a large
+            # table stays small (gemma3's embedding would take 22 GB)
+            parts = zip(*(t.reshape(-1).split(NORM_CHUNK) for t in parts))
         else:
-            p.copy_(p32.sub_(g))
+            parts = (parts,)
+        for pc, m, v, gc in parts:
+            _adamw_elements(cfg, pc, m, v, gc, scale, lr, c1, c2)
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
+
+
+def _adamw_elements(cfg: AdamWConfig, p: Tensor, m: Tensor, v: Tensor,
+                    grad: Tensor, scale, lr, c1, c2) -> None:
+    """The update of one span of elements, in place on ``p``, ``m``, ``v``
+    (views of the parameter and its moments)."""
+    # in the reference's order of operations; g and t are scratch
+    g = grad.float() * scale
+    m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+    t = (g * (1 - cfg.b2)).mul_(g)
+    v.mul_(cfg.b2).add_(t)
+    torch.div(v, c2, out=t).sqrt_().add_(cfg.eps)
+    torch.div(m, c1, out=g).div_(t)                      # the Adam direction
+    del t
+    p32 = p.float()
+    g.add_(p32 * cfg.weight_decay).mul_(lr)
+    if p.dtype == torch.float32:
+        p.sub_(g)
+    else:
+        p.copy_(p32.sub_(g))
 
 
 def adamw_specs(param_specs: Mapping[str, object]) -> AdamWState:

@@ -24,7 +24,8 @@ from repro_torch.convert import (adamw_state_from_arrays,
                                  dcnv2_params_from_arrays,
                                  dien_params_from_arrays,
                                  engine_from_arrays, graph_from_arrays,
-                                 oracle_from_arrays, pna_params_from_arrays,
+                                 lm_params_from_arrays, oracle_from_arrays,
+                                 pna_params_from_arrays,
                                  sasrec_params_from_arrays, table_from_arrays,
                                  two_tower_params_from_arrays)
 from repro_torch.core import (AcornConfig, HybridIndex, sentinel_result)
@@ -40,6 +41,7 @@ from repro_torch.kernels.neighbor_expand import neighbor_expand_cuda
 from repro_torch.kernels.pna_aggregate import pna_aggregate_cuda
 from repro_torch.models.gnn import init_pna
 from repro_torch.models.recsys import init_two_tower
+from repro_torch.models.transformer import init_cache
 
 PNA_REDUCED = PNA_ARCH.config(reduced=True, shape="molecule")
 
@@ -141,6 +143,16 @@ ENTRY_POINTS = {
         get_arch("dcn-v2").config(reduced=True)),
     "launch.train dien": lambda: train_main(["--arch", "dien",
                                              "--steps", "2"]),
+    "lm_params_from_arrays": lambda: lm_params_from_arrays(
+        {}, get_arch("qwen3-8b").config(reduced=True)),
+    "init_cache": lambda: init_cache(
+        get_arch("qwen3-8b").config(reduced=True), 1, 4),
+    "launch.train qwen3-8b": lambda: train_main(["--arch", "qwen3-8b",
+                                                 "--steps", "2"]),
+    **{f"{a}.init": (lambda a=a: get_arch(a).init(
+        get_arch(a).config(reduced=True)))
+       for a in ("smollm-360m", "qwen3-8b", "gemma3-27b",
+                 "deepseek-v2-lite-16b", "moonshot-v1-16b-a3b")},
 }
 
 

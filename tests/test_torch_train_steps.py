@@ -370,6 +370,8 @@ def test_launcher_pna_resumes_and_logs_finite_losses(tmp_path, capsys):
 
 
 def test_launcher_arch_choices():
-    assert launch.TRAIN_ARCH_IDS == ["pna", "dien", "two-tower-retrieval",
-                                     "sasrec", "dcn-v2"]
-    assert set(launch.TRAIN_ARCH_IDS) <= set(jlaunch.ARCH_IDS)
+    assert launch.TRAIN_ARCH_IDS == [
+        "smollm-360m", "gemma3-27b", "qwen3-8b", "moonshot-v1-16b-a3b",
+        "deepseek-v2-lite-16b", "pna", "dien", "two-tower-retrieval",
+        "sasrec", "dcn-v2"]
+    assert set(launch.TRAIN_ARCH_IDS) == set(jlaunch.ARCH_IDS)

@@ -187,12 +187,12 @@ def test_cells_match_reference():
 def test_unported_kinds_and_arches_raise():
     # every two-tower kind is ported now (its train step is tested in
     # test_torch_train_steps.py); a loss exists for train cells only, and
-    # the LM arches wait (the other recsys arches are ported since item 5c)
+    # every arch of the reference's registry is ported since item 5d
     cfg = ARCH.config(reduced=True)
     with pytest.raises(ValueError, match="not a train cell"):
         ARCH.loss_fn(cfg, "serve_p99")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5d"):
-        get_arch("qwen3-8b")
+    with pytest.raises(KeyError):
+        get_arch("no-such-arch")
 
 
 def test_init_two_tower_law_and_seed():

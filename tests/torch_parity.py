@@ -20,6 +20,7 @@ import torch.distributed as dist
 from repro_torch.convert import (adamw_state_from_arrays,
                                  dcnv2_params_from_arrays,
                                  dien_params_from_arrays, graph_from_arrays,
+                                 lm_params_from_arrays,
                                  pna_params_from_arrays,
                                  sasrec_params_from_arrays, table_from_arrays,
                                  two_tower_params_from_arrays)
@@ -206,9 +207,15 @@ def port_recsys(params, cfg, device="cpu"):
     return conv(_numpy_tree(params), cfg, device=device)
 
 
+def port_lm(params, cfg, device="cpu"):
+    """The port's ``Transformer`` from a reference ``init_lm`` tree (its
+    stacked layers sliced per layer)."""
+    return lm_params_from_arrays(_numpy_tree(params), cfg, device=device)
+
+
 def port_adamw_state(state, model, device="cpu"):
     """The port's ``AdamWState`` for ``model`` (a ported ``TwoTower``,
-    ``PNA``, ``DIEN``, ``SASRec`` or ``DCNv2``) from a reference
+    ``PNA``, ``DIEN``, ``SASRec``, ``DCNv2`` or ``Transformer``) from a reference
     ``AdamWState`` over the same parameters."""
     return adamw_state_from_arrays(np.asarray(state.step),
                                    _numpy_tree(state.mu),
