@@ -31,7 +31,8 @@ Phases, each printed on its own line:
            started together) and print the build time; join a one-rank
            ``nccl`` process group (``HashStore``, rank 0 of 1, a 60 s
            collective timeout) and check that an all-gather of a CUDA
-           tensor returns it (``mesh_group``).
+           tensor returns it (``mesh_group``); the group stays until the
+           ``lm`` part has run.
   build    ``HybridIndex.build`` on the card: LCPS data of the paper's
            §7.1 SIFT1M shape (n = 1M, d = 128, 12 uniform labels,
            equality predicates), ACORN-γ with M = 32, γ = 12, M_β = 64.
@@ -125,7 +126,11 @@ Phases, each printed on its own line:
            sum weighted by ``ids >= 0``, mean over the valid ids with
            offsets); then the op at those shapes with the launch counters
            zeroed just before and read just after, and its gradient at
-           (65,536, 4) against a CPU copy.
+           (65,536, 4) against a CPU copy.  Then ``make_sharded_lookup``
+           over that table on the one-rank mesh (``P("model", None)``,
+           ids (65,536, 4) ``P("data", None)``, 25 % -1 and 1 % >= V):
+           bit-identical to ``where(0 <= ids < V, table[ids], 0)``, no
+           kernel launch, ms per call (``sharded_lookup_check``).
   train    the training core on the same FULL model (``train_phases``):
            two-tower ``train_batch`` at B = 65,536 (Zipf(1.1) items, logq
            their log-probabilities; ``zipf_batch``): one warm-up step, 10
@@ -140,9 +145,21 @@ Phases, each printed on its own line:
            own fp32 distance to its float64 run or 1e-5 relative L2; one
            ``adamw_update`` from the same gradients within rtol 1e-5, no
            gradient outside the touched rows) and the blocked loss against
-           the plain one on the card.  PNA ``molecule`` (4 layers, d 75, 128 graphs of 30
-           nodes): step 1 against a CPU copy as above, then 20 counted
-           steps.  Neither path may launch any of the port's kernels
+           the plain one on the card; one more step plainly and through
+           ``sharded_step`` with the arch's ``in_shardings`` on the
+           one-rank mesh from a copy of the same state (parameters, both
+           moments, step count and loss bit-identical; no launch;
+           ``sharded_train``; on one rank nothing is gathered or cut, so
+           the record's ``check`` reads "one-rank determinism": the
+           sharding itself is tested on gloo ranks); ``compressed_psum``
+           of that batch's ``user_emb`` gradient, with no error and then
+           with the residual carried, bit for bit against a CPU copy's
+           ``quantize_int8`` / ``dequantize_int8``, each error under
+           0.05 of max |x| (``compressed_psum_check``).  PNA
+           ``molecule`` (4 layers, d 75, 128 graphs of 30 nodes): step 1
+           against a CPU copy as above, then 20 counted steps, then one
+           through ``sharded_step`` as two-tower's.  Neither path may
+           launch any of the port's kernels
            (``train_launches`` in the record).  A sync and an async
            checkpoint of the molecule state restored onto the card,
            bit-identical (the two-tower FULL state, 25.8 GB, is not
@@ -167,7 +184,8 @@ Phases, each printed on its own line:
            law with ``EDGE_CHUNK`` 2^18 (4 chunks) against CPU copies,
            then at full size (2,449,408 nodes, 61,859,328 edges, 196,615
            labelled): a no-grad forward, a warm-up step whose loss must
-           equal it within 1e-5, 3 counted steps (finite, falling), peak
+           equal it within 1e-5, ``OGB_STEPS`` counted steps (finite,
+           falling), peak
            memory and the data's host and transfer times.  Then the
            ``recsys`` part (``recsys_phases``): DIEN, SASRec and DCN-v2 at
            FULL width, weights from a seeded generator on the card, the
@@ -209,7 +227,7 @@ Phases, each printed on its own line:
            bytes.  gather_distance (d = 512, l2 and ip, 10 % -1 ids) and
            neighbor_expand (compress and two_hop, m = 16, m_beta = 32) held
            against their plain versions on shard 0's graph and timed
-           (``other_shapes`` entries with ``phase: engine``).  512
+           (``other_shapes`` entries with ``phase: engine``).  256
            ``contains`` queries through ``engine.serve`` in batches of 32
            after one warm-up batch, counters zeroed just before and read
            just after (``engine_launches`` of both records): QPS, batch
@@ -220,7 +238,7 @@ Phases, each printed on its own line:
            queries of the closed loop and of each kind forced onto the
            graph route at ef 64 and 256, with the generator clusters their
            exact top-10 span (``graph_forced``); an open loop of
-           128 requests of 4 queries through ``ServingRuntime`` at seeded
+           64 requests of 4 queries through ``ServingRuntime`` at seeded
            Poisson arrivals, 50 % of the closed loop's QPS (sustained QPS,
            p50 / p99, shed, dispatches, batch sizes; every served query's
            ids held to the closed loop's, near ties counted); an overload
@@ -281,10 +299,25 @@ Phases, each printed on its own line:
            32,768-token call: ms, tokens/s, peak, the fp32 attention's
            FLOP count; MoE arches: two forwards with the same bits);
            ``decode_32k`` and gemma3's ``long_500k`` (a cache filled from
-           the generator, 10 counted steps on its last rows: ms a step
+           the generator, 5 counted steps on its last rows: ms a step
            beside the bytes a step reads at 3.35 TB/s); launch counters
            zeroed before each counted run and read after: none of the
            port's kernels may launch (``lm_launches`` in the record).
+           Per arch, on the one-rank mesh (``lm_sharded``, a one-rank
+           determinism check as the train part's): the
+           one-period fp32 model's train step through ``sharded_step``
+           with ``in_shardings(cfg, "train_4k", mesh, layout)`` in both
+           layouts, each from a fresh draw of the same weights, against
+           the plain step (parameters, both moments, step count and
+           loss compared by ``bits_digest``), then a prefill and one
+           decode step with the ``prefill_32k`` / ``decode_32k`` specs
+           (logits and cache bit-identical).  After gemma3, its model
+           freed: ``split_kv_decode_attention`` at its ``long_500k``
+           cache shape (q (2, 16, 128) fp32, k / v (2, 524,288, 16, 128)
+           bf16; row 0 valid below 400,000, row 1 nowhere and exactly
+           zero) within 1e-5 of a float64 softmax taken in chunks on
+           the card, ms per call beside its bytes at 3.35 TB/s
+           (``split_kv_check``).
 The second-to-last lines are the ``{"kernels": [...]}`` record and the
 card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
@@ -397,7 +430,7 @@ ENGINE_M, ENGINE_GAMMA, ENGINE_M_BETA, ENGINE_EF_SEARCH = 16, 12, 32, 96
 ENGINE_BATCH, ENGINE_K = 32, 10
 # `contains` queries, correlation none, seed 1 (cut from 1,024 to fit the
 # run's time)
-ENGINE_CLOSED = 512
+ENGINE_CLOSED = 256     # closed-loop queries (cut from 512 for the run's time)
 ENGINE_KIND_QUERIES = 64   # each of ENGINE_KINDS, seed 2
 ENGINE_KINDS = (("between", "none"), ("contains+between", "none"),
                 ("regex", "none"), ("contains", "pos"), ("contains", "neg"))
@@ -425,7 +458,7 @@ BASE_RECALL_FLOOR = 0.5
 # Table 4: time to index of the incremental builder (sequential inserts,
 # host-driven); N_INC (was 2,048) and INC_PREFIX (was 256) are cut to fit
 # the run's time
-N_INC = 1024
+N_INC = 512                        # rows (cut from 1,024 for the run's time)
 INC_VARIANTS = ("hnsw", "acorn-1", "acorn-gamma")
 INC_EFC = 40                       # ef_build: 40; ACORN-γ 40·γ = 480
 INC_QUERIES = 64
@@ -1775,6 +1808,8 @@ def bag_phases(dev, flush, table) -> dict:
     del kept
     log("parity", path="embedding_bag", shape=tuple(inputs[-1].shape),
         modes=MODES, max_abs_err=parity_err)
+    del leaf, grads_in, table_cpu
+    log("bag", **sharded_lookup_check(dev, table))
     rec = recs[0]
     rec.update(launches=launches, name="embedding_bag", route="cuda",
                source="src/repro_torch/csrc/embedding_bag.cu",
@@ -2645,7 +2680,7 @@ def incremental_phase(dev, x, xq, n_inc: int = N_INC,
 # ---- mesh: the distributed paths on a one-rank process group ----
 MESH_SEED = 0
 MESH_CHECK = {"serve_1m": 16, "serve_25m": 8}  # queries held to fp64
-MESH_TIMED = 3              # timed calls per acorn variant, after one warm-up
+MESH_TIMED = 1              # timed calls a variant, after a warm-up (was 3)
 MESH_EXACT_ROWS = 1 << 18   # rows per block of the fp64 recompute
 MESH_ENGINE_QUERIES = 256   # closed-loop queries through each engine path
 MESH_PARITY = 16            # of them, SPMD on the card vs a CPU copy
@@ -2733,7 +2768,7 @@ def acorn_serve(dev, shape: str, variants, flush,
     sync(dev)
     data_s = time.perf_counter() - t0
     mesh = make_host_mesh()
-    args = arch.in_shardings(None, shape, mesh)(x, q, masks)
+    args = arch.place_inputs(shape, mesh, x, q, masks)
     nbytes = (x.numel() * 4 + masks.numel() + q.numel() * 4 + b * k * 8)
     bound_ms, bound_by = bound(nbytes, 2.0 * b * n * d)
     log("mesh", arch="acorn", shape=shape, batch=b, n=n, d=d, k=k,
@@ -2900,6 +2935,327 @@ def mesh_engine(dev, ds, closed, n_queries: int = MESH_ENGINE_QUERIES,
 # ---------------------------------------------------------------------------
 # train: the training core on the two ported arches
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# sharded steps and the mesh collectives, on the one-rank mesh
+# ---------------------------------------------------------------------------
+# On one rank ``sharded_step`` gathers, copies and cuts nothing, and each
+# collective reduces over one member: these checks show that the step runs
+# from the arch's specs and is deterministic, and hold the collectives'
+# local arithmetic to the plain formula.  Placing, gathering and cutting
+# over several ranks are tested on gloo groups (tests/test_torch_sharding.py,
+# tests/test_torch_collectives_mesh.py); the records say so in ``check``.
+ONE_RANK_STEP = "one-rank determinism"
+ONE_RANK_COLLECTIVE = "one-rank local arithmetic"
+
+LOOKUP_SHAPE = (65_536, 4)      # make_sharded_lookup's ids: train_batch x 4
+LOOKUP_PAD = 0.25               # of them -1
+LOOKUP_OVER = 0.01              # and >= V (both read zeros)
+PSUM_REL_TOL = 0.05             # compressed_psum: the reference test's bound
+SPLIT_KV_SHAPE = (2, 524_288, 16, 128)  # gemma3 long_500k's (B, S, KV, hd)
+SPLIT_KV_VALID = 400_000        # row 0's valid keys; row 1 has none
+SPLIT_KV_CHUNK = 1 << 16        # sequence rows per float64 chunk
+SPLIT_KV_TIMED = 3              # timed calls, after the checked one
+SPLIT_KV_REDUCED = ((2, 1024, 4, 16), 800, 256)   # (shape, valid, chunk)
+# digest weights: (i * a mod p) + 1 for element i, p = 2^31 - 1
+DIGEST_P = (1 << 31) - 1
+DIGEST_MULS = (48_271, 69_621)
+
+
+def flat_outputs(tree, prefix: str = "") -> dict:
+    """{path: tensor} of a step's arguments or outputs: a module's
+    parameters by name, the fields of named tuples, dicts and tuples
+    walked in order; other leaves left out."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return {prefix or ".": tree}
+    if isinstance(tree, torch.nn.Module):
+        return {prefix + k: p.detach() for k, p in tree.named_parameters()}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = zip(getattr(tree, "_fields", range(len(tree))), tree)
+    else:
+        return {}
+    out = {}
+    for k, v in items:
+        out.update(flat_outputs(v, f"{prefix}{k}."))
+    return out
+
+
+def bits_digest(t):
+    """A digest of a 4-byte tensor's bits, an int64 (3,) tensor on its
+    device: the exact sum of the elements' bit patterns read as unsigned
+    32-bit ints, and two sums of those mod ``DIGEST_P`` weighted by each
+    element's position (weights ``(i * a mod p) + 1``), ``NORM_CHUNK``
+    elements at a time.  A change of one element always changes the first
+    sum; changes that keep all three equal are a 2^-62 chance.  Up to 2^31
+    elements (the exact sum stays below 2^63)."""
+    import torch
+    from repro_torch.train.optimizer import NORM_CHUNK
+    if t.element_size() != 4 or t.numel() >= 1 << 31:
+        raise ValueError(f"bits_digest takes < 2^31 4-byte elements, not "
+                         f"{t.numel()} x {t.dtype}")
+    flat = t.detach().contiguous().view(torch.int32).reshape(-1)
+    out = torch.zeros(3, dtype=torch.int64, device=t.device)
+    for start in range(0, flat.numel(), NORM_CHUNK):
+        b = flat[start:start + NORM_CHUNK].to(torch.int64) & 0xFFFFFFFF
+        out[0] += b.sum()
+        b %= DIGEST_P
+        i = torch.arange(start, start + b.numel(), device=t.device,
+                         dtype=torch.int64)
+        for j, a in enumerate(DIGEST_MULS, start=1):
+            w = (i * a) % DIGEST_P + 1
+            out[j] = (out[j] + (b * w % DIGEST_P).sum()) % DIGEST_P
+    return out
+
+
+def assert_bits_equal(got: dict, want: dict, what: str) -> int:
+    """Every tensor of ``got`` equal to ``want``'s of the same path, bit for
+    bit (dtype, shape and values, NaNs included); returns how many."""
+    import torch
+    if list(got) != list(want):
+        raise AssertionError(f"{what}: outputs {list(got)} vs {list(want)}")
+    for k, g in got.items():
+        w = want[k]
+        same = (g.dtype == w.dtype and g.shape == w.shape and torch.equal(
+            *(t.reshape(-1).contiguous().view(torch.uint8) if t.numel()
+              else t for t in (g, w))))
+        if not same:
+            raise AssertionError(f"{what}: {k} differs from the plain call's")
+    return len(got)
+
+
+def sharded_run(step, mesh, specs, args, what: str) -> tuple:
+    """``sharded_step(step, mesh, specs)`` on ``place(args, specs, mesh)``,
+    the launch counters zeroed just before and read just after (the
+    paths it runs reach none of the port's kernels): (outputs, launches,
+    seconds)."""
+    from repro_torch.distributed.sharding import place, sharded_step
+    blocks = place(args, specs, mesh)
+    dev = next(iter(flat_outputs(args).values())).device
+    sync(dev)
+    counters = zero_launches()
+    t0 = time.perf_counter()
+    outs = sharded_step(step, mesh, specs)(*blocks)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    return outs, check_no_launches(counters, what), seconds
+
+
+def sharded_train(dev, arch_id: str, cfg, shape: str, model, opt, batch,
+                  what: str) -> tuple:
+    """One train step of the arch from (``model``, ``opt``) plainly, in
+    place, and through ``sharded_step`` with ``in_shardings(cfg, shape,
+    mesh)`` on ``make_host_mesh()`` from a copy of the same state: the
+    parameters, both moments, the step count and the loss bit-identical.
+    Returns (record, the plain step's AdamW state)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import set_named_params
+    from repro_torch.train.optimizer import AdamWState
+    arch = get_arch(arch_id)
+    mesh = make_host_mesh()
+    specs = arch.in_shardings(cfg, shape, mesh)
+    step = arch.step_fn(cfg, shape)
+    copy = set_named_params(arch.module(cfg), {
+        k: p.detach().clone() for k, p in model.named_parameters()})
+    copy_opt = AdamWState(step=opt.step.clone(),
+                          mu={k: v.clone() for k, v in opt.mu.items()},
+                          nu={k: v.clone() for k, v in opt.nu.items()})
+    sync(dev)
+    t0 = time.perf_counter()
+    _, opt, loss = step(model, opt, batch)
+    sync(dev)
+    plain_s = time.perf_counter() - t0
+    outs, launches, sharded_s = sharded_run(step, mesh, specs,
+                                            (copy, copy_opt, batch), what)
+    n = assert_bits_equal(flat_outputs(outs), flat_outputs(
+        (model, opt, loss)), f"{what} sharded_step")
+    del copy, copy_opt, outs
+    rec = dict(path=f"{what} sharded_step", cell=shape,
+               check=ONE_RANK_STEP,
+               mesh=dict(zip(mesh.axis_names, mesh.shape)),
+               bit_identical_tensors=n, plain_step_s=round(plain_s, 4),
+               sharded_step_s=round(sharded_s, 4),
+               sharded_launches=launches)
+    return rec, opt
+
+
+def compressed_psum_check(grad, what: str) -> dict:
+    """``compressed_psum`` of ``grad`` over ``data`` of ``make_host_mesh()``
+    with no error, then with the residual carried: each mean and residual,
+    and the card's int8 codes and scale, equal a CPU copy's
+    ``quantize_int8`` / ``dequantize_int8`` bit for bit; each mean within
+    ``PSUM_REL_TOL`` (max |err| over max |value|, the reference test's
+    measure) of the value it reduced.  The CPU copy holds the rows where
+    ``grad`` is nonzero (a table's gradient touches the batch's rows
+    only): elsewhere both are zero, which the card's outputs must be
+    (copying a 4.3 GB table gradient and quantizing it on the host took
+    35 s on the card's 8-core host)."""
+    import torch
+    from repro_torch.distributed.collectives import (compressed_psum,
+                                                     dequantize_int8,
+                                                     quantize_int8)
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh()
+    t0 = time.perf_counter()
+    mean1, err1 = compressed_psum(grad, mesh, "data")
+    mean2, err2 = compressed_psum(grad, mesh, "data", error=err1)
+    sync(grad.device)
+    card_s = time.perf_counter() - t0
+    q_card, s_card = quantize_int8(grad)
+    flat = grad.reshape(grad.shape[0], -1)
+    touched = (flat != 0).any(dim=1)
+    rows = touched.nonzero().reshape(-1)
+    for t in (mean1, err1, mean2, err2):
+        if bool(t.reshape(flat.shape)[~touched].any()):
+            raise AssertionError(f"{what} compressed_psum: nonzero output "
+                                 "where the gradient is zero")
+    x = grad[rows].cpu()
+    rec = dict(path=f"{what} compressed_psum", check=ONE_RANK_COLLECTIVE,
+               shape=tuple(grad.shape),
+               rows_nonzero=int(rows.numel()), card_s=round(card_s, 4))
+    for i, (mean, err) in enumerate(((mean1, err1), (mean2, err2)), 1):
+        q, scale = quantize_int8(x)
+        if i == 1:
+            assert_bits_equal({"q": q_card[rows].cpu(),
+                               "scale": s_card.cpu()},
+                              {"q": q, "scale": scale}, f"{what} int8 codes")
+            del q_card
+        deq = dequantize_int8(q, scale)
+        new_err = x - deq
+        assert_bits_equal({"mean": mean[rows].cpu(), "error": err[rows].cpu()},
+                          {"mean": deq, "error": new_err},
+                          f"{what} compressed_psum call {i}")
+        rel = float((deq - x).abs().max() / x.abs().max().clamp_min(1e-30))
+        if not rel < PSUM_REL_TOL:
+            raise AssertionError(f"{what} compressed_psum call {i}: error "
+                                 f"{rel} >= {PSUM_REL_TOL}")
+        rec[f"call{i}_rel_err"] = rel
+        rec[f"call{i}_scale"] = float(scale.reshape(()))
+        x = x + new_err                 # the second call reduces x + error
+    rec["bit_identical_to_cpu"] = True
+    rec["seconds"] = round(time.perf_counter() - t0, 3)
+    return rec
+
+
+def sharded_lookup_check(dev, table) -> dict:
+    """``make_sharded_lookup`` over ``table`` (V, D) on ``make_host_mesh()``
+    (the table cut ``P("model", None)``, the ids ``P("data", None)``): ids
+    ``LOOKUP_SHAPE`` uniform over the rows, ``LOOKUP_PAD`` of them -1 and
+    ``LOOKUP_OVER`` >= V; the result bit-identical to ``where(0 <= ids <
+    V, table[ids], 0)``; launch counters zeroed just before and read just
+    after (none); ms per call."""
+    import torch
+    from repro_torch.distributed.collectives import make_sharded_lookup
+    from repro_torch.distributed.sharding import P, place
+    from repro_torch.launch.mesh import make_host_mesh
+    v, d = table.shape
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, v, size=LOOKUP_SHAPE)
+    r = rng.random(LOOKUP_SHAPE)
+    ids[r < LOOKUP_PAD] = -1
+    over = (r >= LOOKUP_PAD) & (r < LOOKUP_PAD + LOOKUP_OVER)
+    ids[over] = v + rng.integers(0, v, size=int(over.sum()))
+    ids = torch.as_tensor(ids.astype(np.int32), device=dev)
+    mesh = make_host_mesh()
+    lookup = make_sharded_lookup(mesh, "data", "model")
+    tab_l, ids_l = place((table, ids), (P("model", None), P("data", None)),
+                         mesh)
+    sync(dev)
+    counters = zero_launches()
+    t0 = time.perf_counter()
+    got = lookup(tab_l, ids_l)
+    sync(dev)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = check_no_launches(counters, "make_sharded_lookup")
+    ok = (ids >= 0) & (ids < v)
+    want = torch.where(ok[..., None], table[ids.clamp(0, v - 1).long()],
+                       table.new_zeros(()))
+    assert_bits_equal({"out": got}, {"out": want}, "make_sharded_lookup")
+    rec = dict(path="make_sharded_lookup", check=ONE_RANK_COLLECTIVE,
+               table=(v, d),
+               ids=LOOKUP_SHAPE, padding=int((ids < 0).sum()),
+               over_v=int((ids >= v).sum()), bit_identical=True,
+               first_call_ms=round(first_ms, 3), sharded_launches=launches)
+    if dev.type == "cuda":
+        flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+        rec["ms"] = time_ms(lambda: lookup(tab_l, ids_l), 10, flush)
+    return rec
+
+
+def split_kv_check(dev, shape=SPLIT_KV_SHAPE, valid_rows=SPLIT_KV_VALID,
+                   chunk=SPLIT_KV_CHUNK) -> dict:
+    """``split_kv_decode_attention`` over ``data`` of ``make_host_mesh()``
+    at a long-context decode cache: q (B, H, hd) fp32 (normal, scaled by
+    hd^-0.5), k / v (B, S, H, hd) bf16 normal from a seeded generator on
+    ``dev``; row 0 valid below ``valid_rows``, row 1 nowhere, which must
+    come back exactly zero.  The output within rtol ``LM_TOL`` (and an atol
+    of ``LM_TOL`` times its largest |value|) of a float64 softmax taken on
+    ``dev`` over ``chunk``-row chunks of the sequence; ms per call beside
+    the bytes read at 3.35 TB/s."""
+    import torch
+    from repro_torch.distributed.collectives import split_kv_decode_attention
+    from repro_torch.distributed.sharding import P, place
+    from repro_torch.launch.mesh import make_host_mesh
+    b, s, h, hd = shape
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 7)
+    q = torch.randn((b, h, hd), generator=gen, device=dev) * hd ** -0.5
+    k = torch.randn((b, s, h, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn((b, s, h, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    valid = torch.zeros((b, s), dtype=torch.bool, device=dev)
+    valid[0, :valid_rows] = True
+    mesh = make_host_mesh()
+    attn = split_kv_decode_attention(mesh, "data")
+    seq = P(None, "data")
+    args = place((q, k, v, valid), (P(), seq, seq, seq), mesh)
+    mem0 = reset_peak(dev)
+    sync(dev)
+    counters = zero_launches()
+    t0 = time.perf_counter()
+    out = attn(*args)
+    sync(dev)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = check_no_launches(counters, "split_kv_decode_attention")
+    peak = peak_memory(dev, mem0)
+    if bool(out[1].any()):
+        raise AssertionError("split-KV: a query with no valid key is not 0")
+    # float64 on dev, chunk by chunk: the max, then the sums
+    q64 = q.double()
+    m = torch.full((b, h), float("-inf"), dtype=torch.float64, device=dev)
+    for c in range(0, s, chunk):
+        sc = torch.einsum("bhd,bshd->bhs", q64, k[:, c:c + chunk].double())
+        sc = sc.masked_fill(~valid[:, None, c:c + chunk], float("-inf"))
+        m = torch.maximum(m, sc.amax(dim=-1))
+    z = torch.zeros((b, h), dtype=torch.float64, device=dev)
+    wv = torch.zeros((b, h, hd), dtype=torch.float64, device=dev)
+    for c in range(0, s, chunk):
+        keep = valid[:, None, c:c + chunk]
+        sc = torch.einsum("bhd,bshd->bhs", q64, k[:, c:c + chunk].double())
+        e = torch.exp(sc - m[..., None]).masked_fill(~keep, 0.0)
+        z += e.sum(dim=-1)
+        wv += torch.einsum("bhs,bshd->bhd", e, v[:, c:c + chunk].double())
+    want = (wv / z.clamp_min(1e-30)[..., None])[0].cpu()
+    err = assert_lm_close(out[0], want, "split-KV decode attention")
+    nbytes = (k.numel() * k.element_size() * 2 + valid.numel()
+              + q.numel() * 4 + out.numel() * 4)
+    rec = dict(path="split_kv_decode_attention", check=ONE_RANK_COLLECTIVE,
+               q=tuple(q.shape),
+               kv=tuple(k.shape), kv_dtype="bfloat16", valid_rows=valid_rows,
+               empty_row_zero=True, max_abs_err=err,
+               first_call_ms=round(first_ms, 3), bytes_read=nbytes,
+               bytes_bound_ms=round(nbytes / PEAK_BYTES_PER_S * 1e3, 4),
+               sharded_launches=launches, **peak)
+    if dev.type == "cuda":
+        flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+        rec["ms"] = time_ms(lambda: attn(*args), SPLIT_KV_TIMED, flush,
+                            warmup=0)
+    return rec
+
 
 TRAIN_SEED = 8
 TRAIN_STEPS = 10            # two-tower train_batch steps, after one warm-up
@@ -3193,6 +3549,19 @@ def two_tower_train(dev, model, cfg, b: int, steps: int = TRAIN_STEPS,
         blocked_vs_plain_loss_err=blk_err, blocked_vs_plain_grad_err=g_err)
     rec.update(parity_loss_card=par["loss_card"],
                parity_loss_cpu=par["loss_cpu"])
+    del u, v, gb, gr
+    # the same step through sharded_step, then compressed_psum on the
+    # user table's gradient of that batch
+    shard, opt = sharded_train(dev, "two-tower-retrieval", cfg,
+                               "train_batch", model, opt, batch, "two-tower")
+    log("train", **shard)
+    _, grads = value_and_grad(loss_fn, model, batch)
+    grad = grads.pop("user_emb")
+    del grads
+    psum = compressed_psum_check(grad, "two-tower user_emb gradient")
+    del grad
+    log("train", **psum)
+    rec.update(sharded=shard, compressed_psum=psum)
     return rec
 
 
@@ -3238,6 +3607,10 @@ def pna_train(dev, reduced: bool = False, b: int = None,
                losses=[round(v, 6) for v in losses],
                kernel_launches=launches)
     log("train", arch="pna", shape="molecule", **rec)
+    shard, opt = sharded_train(dev, "pna", cfg, "molecule", model, opt,
+                               batch, "pna molecule")
+    log("train", **shard)
+    rec["sharded"] = shard
     return rec, model, opt
 
 
@@ -3339,7 +3712,7 @@ def train_phases(dev, model, reduced: bool = False) -> dict:
 
 SPARSE_SEED = 9
 SPARSE_STEPS = 20      # counted full_graph_sm and minibatch_lg steps
-OGB_STEPS = 5          # counted ogb_products steps, after one warm-up
+OGB_STEPS = 3          # counted ogb_products steps, after one warm-up (was 5)
 # The sparse cells' step-1 parity.  Their fp32 gradients may also differ
 # from the CPU copy's where a ReLU input lies within fp32 rounding of 0
 # and lands on the other side: on the sampled Reddit block one such
@@ -4383,7 +4756,7 @@ LM_SEED = 11
 LM_ARCHES = ("smollm-360m", "qwen3-8b", "gemma3-27b", "deepseek-v2-lite-16b",
              "moonshot-v1-16b-a3b")
 LM_TRAIN_STEPS = 3          # counted train_4k steps, after one warm-up
-LM_DECODE_STEPS = 10        # counted decode steps, on the cache's last rows
+LM_DECODE_STEPS = 5         # counted decode steps at the cache's end (was 10)
 LM_PARITY_TOKENS = 64       # step 1 of a one-period copy on 1 x 64 tokens
 #                             (cut from 256 for the run's time: gemma3's
 #                             copy took 77 s at 256 on an H100 machine, 36 s
@@ -4681,10 +5054,92 @@ def lm_parity(dev, arch_id: str, cfg, n_tokens: int = LM_PARITY_TOKENS
     del m16, ref
     free(dev)
     lap("adamw")
+    rec["sharded"] = lm_sharded(dev, arch_id, c16, c32, card_batch)
+    lap("sharded")
     rec.update(prefill_decode_max_abs_err=serve_err, gradients=gpar,
                adamw_update_max_abs_err=upd_err, stage_s=laps,
                seconds=round(sum(laps.values()), 3))
-    log("parity", path=f"{arch_id} step 1 (one period, fp32)", **rec)
+    log("parity", path=f"{arch_id} step 1 (one period, fp32)",
+        **{k: v for k, v in rec.items() if k != "sharded"})
+    return rec
+
+
+def lm_sharded(dev, arch_id: str, c16, c32, batch: dict) -> dict:
+    """The arch's steps through ``sharded_step`` with ``in_shardings(cfg,
+    cell, mesh)`` on ``make_host_mesh()``, each against the plain call on
+    the same inputs, bit for bit: the ``train_4k`` step in both layouts
+    (``baseline`` and ``pure_dp``) from the one-period fp32 model as
+    ``lm_parity`` draws it (parameters, both moments, the step count and
+    the loss compared through ``bits_digest``: two copies of gemma3's
+    47 GB state would not fit the card), then, from the updated model, a
+    ``prefill_32k`` call on the tokens (logits and cache) and one
+    ``decode_32k`` step at the last position on a copy of that cache
+    (logits and cache).  Logged on an ``[lm]`` line."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import set_named_params
+    from repro_torch.train import init_adamw
+    arch = get_arch(arch_id)
+    mesh = make_host_mesh()
+    t_all = time.perf_counter()
+
+    def fresh():
+        m16 = arch.init(c16, torch.Generator(device=dev).manual_seed(
+            LM_SEED), device=dev)
+        model = set_named_params(arch.module(c32), {
+            k: p.float() for k, p in m16.named_parameters()})
+        return model, init_adamw(model)
+
+    def digests(outs) -> dict:
+        return {k: bits_digest(t) for k, t in flat_outputs(outs).items()}
+
+    step = arch.step_fn(c32, "train_4k")
+    model, opt = fresh()
+    want = digests(step(model, opt, batch))
+    del model, opt
+    free(dev)
+    rec = dict(check=ONE_RANK_STEP,
+               mesh=dict(zip(mesh.axis_names, mesh.shape)))
+    for layout in ("baseline", "pure_dp"):
+        model, opt = fresh()
+        what = f"{arch_id} train_4k {layout}"
+        outs, launches, sec = sharded_run(
+            step, mesh, arch.in_shardings(c32, "train_4k", mesh, layout),
+            (model, opt, batch), what)
+        rec[f"train_{layout}"] = dict(
+            bit_identical_tensors=assert_bits_equal(digests(outs), want,
+                                                    what),
+            seconds=round(sec, 4), launches=launches)
+        del opt, outs
+        if layout != "pure_dp":
+            del model
+            free(dev)
+    tokens = batch["tokens"]
+    for shape in ("prefill_32k", "decode_32k"):
+        fn = arch.step_fn(c32, shape)
+        if shape == "prefill_32k":
+            args = (model, {"tokens": tokens})
+            plain = fn(*args)
+            cache = plain[1]
+        else:
+            dbatch = {"tokens": tokens[:, -1:],
+                      "pos": torch.tensor(tokens.shape[1] - 1,
+                                          dtype=torch.int32, device=dev)}
+            args = (model, tuple(c.clone() for c in cache), dbatch)
+            plain = fn(model, cache, dbatch)
+        what = f"{arch_id} {shape}"
+        outs, launches, sec = sharded_run(
+            fn, mesh, arch.in_shardings(c32, shape, mesh), args, what)
+        rec[shape] = dict(
+            bit_identical_tensors=assert_bits_equal(
+                flat_outputs(outs), flat_outputs(plain), what),
+            seconds=round(sec, 4), launches=launches)
+        del outs, plain, args
+    del model, cache
+    free(dev)
+    rec["seconds"] = round(time.perf_counter() - t_all, 3)
+    log("lm", arch=arch_id, path="sharded_step (one period, fp32)", **rec)
     return rec
 
 
@@ -4937,6 +5392,13 @@ def lm_phases(dev, reduced: bool = False) -> dict:
         out[arch_id] = lm_arch(dev, arch_id, reduced)
         out[arch_id]["seconds"] = round(time.perf_counter() - t1, 1)
         log("lm", arch=arch_id, seconds=out[arch_id]["seconds"])
+        if arch_id == "gemma3-27b":     # its long_500k cache, gemma3 freed
+            t1 = time.perf_counter()
+            out["split_kv"] = split_kv_check(
+                dev, *(SPLIT_KV_REDUCED if reduced else ()))
+            out["split_kv"]["seconds"] = round(time.perf_counter() - t1, 3)
+            free(dev)
+            log("lm", **out["split_kv"])
     out["seconds"] = time.perf_counter() - t0
     names = [fn.__name__ for fn in all_launchers()]
     out["kernel_launches"] = {
@@ -5286,13 +5748,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log("mesh", acorn_ms={str(k_): v for k_, v in acorn_ms.items()},
         seconds=f"{time.perf_counter() - t0:.1f}")
-    dist.destroy_process_group()
 
     # ---- lm: the five LM arches at full width, on a card emptied first ----
     del flush, one, q_odd, nodes, qs, ms, ids_c, d_c, sel, graph_calls, cases
     del empty
     torch.cuda.empty_cache()
-    lm = lm_phases(dev)
+    lm = lm_phases(dev)     # its sharded steps run on the one-rank mesh
+    dist.destroy_process_group()
     for rcd in records:   # the LM path runs none of the port's kernels
         rcd["lm_launches"] = lm["kernel_launches"][rcd["name"] + "_cuda"]
 

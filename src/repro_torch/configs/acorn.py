@@ -11,8 +11,9 @@ The step is the pre-filter / brute-force path (the route every query can
 take).  Under the port's multi-controller mesh
 (:mod:`repro_torch.distributed.collectives`) every rank calls the step
 with its own row block of the corpus and the matching columns of the
-masks; :meth:`AcornServeArch.in_shardings` cuts those blocks from whole
-arrays.
+masks: :meth:`AcornServeArch.place_inputs` cuts those blocks from whole
+arrays by :meth:`AcornServeArch.in_shardings` and adds the block's first
+row.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.collectives import Mesh, all_gather_cat, top_k
+from repro_torch.distributed.sharding import P, place
 
 from .specs import CellDef, TensorSpec
 
@@ -134,21 +136,22 @@ class AcornServeArch:
                 TensorSpec((spec["batch"], spec["d"]), torch.float32),
                 TensorSpec((spec["batch"], spec["n"]), torch.bool))
 
-    def in_shardings(self, cfg, shape: str, mesh: Mesh):
-        """``shard(x, queries, masks) -> (x_l, queries, masks_l, base)``:
-        this rank's row block of whole ``x`` (n, d) and the matching columns
-        of ``masks`` (B, n) — the reference's ``P(axes, None)`` and
-        ``P(None, axes)`` — queries replicated; views, not copies.  A rank
-        outside the mesh gets empty blocks."""
+    def in_shardings(self, cfg, shape: str, mesh):
+        """The specs of (x, queries, masks): the corpus's rows and the
+        masks' columns split over every mesh axis, queries replicated
+        (``distributed.sharding.place`` cuts each rank's blocks)."""
         axes = tuple(mesh.axis_names)
+        return (P(axes, None), P(), P(None, axes))
 
-        def shard(x, queries, masks):
-            if mesh.coordinate is None:
-                return x[:0], queries, masks[:, :0], 0
-            rows = mesh.block(x.shape[0], axes)
-            return x[rows], queries, masks[:, rows], rows.start
-
-        return shard
+    def place_inputs(self, shape: str, mesh: Mesh, x, queries, masks):
+        """The step's arguments on this rank from whole (x, queries,
+        masks): the blocks ``place`` cuts by :meth:`in_shardings`, then the
+        global index of the block's first row (0 on a rank outside the
+        mesh, whose blocks are empty)."""
+        blocks = place((x, queries, masks),
+                       self.in_shardings(None, shape, mesh), mesh)
+        return (*blocks, mesh.block_start(x.shape[0],
+                                          tuple(mesh.axis_names)))
 
     def random_inputs(self, shape: str, seed: int = 0, reduced: bool = False,
                       density: float = 0.5, device: DeviceLike = "cuda"):

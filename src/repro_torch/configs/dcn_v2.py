@@ -11,13 +11,15 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.sharding import P
 from repro_torch.models.recsys import (DCNv2, DCNv2Config, dcnv2_forward,
                                        dcnv2_interact, dcnv2_loss,
                                        init_dcnv2, take_fill)
 from repro_torch.train.optimizer import adamw_specs
 
 from .recsys_common import (RECSYS_SHAPES, REDUCED_RECSYS_SHAPES,
-                            RecsysArchBase, TensorSpec)
+                            RecsysArchBase, TensorSpec, all_axes, dp_of,
+                            recsys_param_spec_tree)
 
 FULL = DCNv2Config(vocab_sizes=tuple([1 << 20] * 20 + [1 << 23] * 6))
 REDUCED = DCNv2Config(n_dense=4, n_sparse=5,
@@ -99,6 +101,22 @@ class DCNv2Arch(RecsysArchBase):
         batch.pop("label")
         return (params, batch,
                 TensorSpec((spec["n_candidates"],), torch.int32))
+
+    def in_shardings(self, cfg, shape: str, mesh):
+        """The reference's specs of the cell's step arguments (the
+        parameters keyed by name; the same layouts in both packages)."""
+        spec = RECSYS_SHAPES[shape]
+        dp = dp_of(mesh)
+        pspec = recsys_param_spec_tree(self.abstract_params(cfg), mesh)
+        bs = {"dense": P(dp, None), "sparse": P(dp, None),
+              "label": P(dp)}
+        if spec["kind"] == "train":
+            return (pspec, self.opt_specs(pspec), bs)
+        if spec["kind"] == "serve":
+            bs.pop("label")
+            return (pspec, bs)
+        rep = {"dense": P(None, None), "sparse": P(None, None)}
+        return (pspec, rep, P(all_axes(mesh)))
 
 
 ARCH = DCNv2Arch()

@@ -12,13 +12,15 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.sharding import P
 from repro_torch.models.recsys import (DIEN, DIENConfig, dien_forward,
                                        dien_loss, dien_score_candidates,
                                        init_dien)
 from repro_torch.train.optimizer import adamw_specs
 
 from .recsys_common import (RECSYS_SHAPES, REDUCED_RECSYS_SHAPES,
-                            RecsysArchBase, TensorSpec)
+                            RecsysArchBase, TensorSpec, all_axes, dp_of,
+                            recsys_param_spec_tree)
 
 FULL = DIENConfig(n_items=1_048_576, n_cates=16_384)
 REDUCED = DIENConfig(n_items=512, n_cates=64, embed_dim=8, seq_len=12,
@@ -84,6 +86,24 @@ class DIENArch(RecsysArchBase):
         n = spec["n_candidates"]
         return (params, batch, TensorSpec((n,), torch.int32),
                 TensorSpec((n,), torch.int32))
+
+    def in_shardings(self, cfg, shape: str, mesh):
+        """The reference's specs of the cell's step arguments (the
+        parameters keyed by name; the same layouts in both packages)."""
+        spec = RECSYS_SHAPES[shape]
+        dp = dp_of(mesh)
+        pspec = recsys_param_spec_tree(self.abstract_params(cfg), mesh)
+        bs = {"hist_items": P(dp, None), "hist_cates": P(dp, None),
+              "mask": P(dp, None), "target_item": P(dp),
+              "target_cate": P(dp), "label": P(dp)}
+        if spec["kind"] == "train":
+            return (pspec, self.opt_specs(pspec), bs)
+        if spec["kind"] == "serve":
+            return (pspec, bs)
+        rep = {"hist_items": P(None, None), "hist_cates": P(None, None),
+               "mask": P(None, None), "target_item": P(None),
+               "target_cate": P(None), "label": P(None)}
+        return (pspec, rep, P(all_axes(mesh)), P(all_axes(mesh)))
 
 
 ARCH = DIENArch()

@@ -10,8 +10,9 @@ Each LM arch supports the assigned shapes:
 
 :class:`CellDef`, :class:`TensorSpec` and :func:`param_specs`, shared by
 every arch, live in ``configs/specs.py`` and are re-exported here.  The LM
-mesh rules (``in_shardings``, ``lm_param_spec``) wait for ROADMAP queue 1
-item 5e.
+mesh rules (``in_shardings``) decide each parameter's spec with
+``distributed.sharding.lm_param_spec`` on the reference's stacked (L, ...)
+name and shape, then drop the layer dim for the port's per-layer tensors.
 """
 from __future__ import annotations
 
@@ -20,11 +21,15 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.sharding import (P, lm_param_spec,
+                                              stacked_layout,
+                                              tree_param_specs)
 from repro_torch.models.transformer import (Transformer, TransformerConfig,
                                             decode_step, init_cache, init_lm,
                                             lm_loss, prefill)
 from repro_torch.train.loop import make_train_step
-from repro_torch.train.optimizer import AdamWConfig, adamw_specs
+from repro_torch.train.optimizer import (AdamWConfig, AdamWState,
+                                         adamw_specs)
 
 from .specs import CellDef, TensorSpec, param_specs
 
@@ -138,12 +143,64 @@ class LMArch:
 
     # ------------------------------------------------------------------
     def in_shardings(self, cfg, shape: str, mesh, layout: str = "baseline"):
-        """The LM mesh rules (FSDP + TP weights, ``pure_dp``, the decode
-        cache's layout by KV divisibility) wait for ROADMAP queue 1 item
-        5e."""
-        raise NotImplementedError(
-            "LMArch.in_shardings (lm_param_spec) is not ported yet: ROADMAP "
-            "queue 1 item 5e")
+        """The reference's specs of the cell's step arguments, the
+        parameters keyed by the port's names.
+
+        layout='baseline': FSDP+TP 2-D weight sharding (MaxText-style).
+        layout='pure_dp': batch over EVERY mesh axis, weights replicated —
+        the right call for sub-1B models whose TP matmuls are too small to
+        amortize (the smollm finding).  The batch is split only where the
+        cell's batch divides the axes; the moments take their parameter's
+        spec; the decode cache (the (L, B, Smax, ...) stack, as the
+        reference's) by the arch's KV divisibility, the sequence on the
+        data-parallel axes at batch 1 (long_500k)."""
+        kind = LM_SHAPES[shape]["kind"]
+        b = LM_SHAPES[shape]["batch"]
+        sizes = dict(zip(mesh.axis_names, mesh.shape))
+        dp_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+        dp_total = 1
+        for a in dp_axes:
+            dp_total *= sizes[a]
+        dp = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+        bspec = dp if b % dp_total == 0 and b >= dp_total else None
+
+        params = self.abstract_params(cfg)
+        if layout == "pure_dp":
+            all_axes = tuple(mesh.axis_names)
+            n_dev = mesh.size
+            bspec = all_axes if (b % n_dev == 0 and b >= n_dev) else bspec
+            pspecs = {k: P(*([None] * len(s.shape)))
+                      for k, s in params.items()}
+        else:
+            pspecs = tree_param_specs(params, mesh, lm_param_spec,
+                                      stacked_layout(cfg.n_layers))
+        if kind == "train":
+            # moments shard exactly like their params
+            opt_specs = AdamWState(step=P(), mu=pspecs, nu=pspecs)
+            return (pspecs, opt_specs,
+                    {"tokens": P(bspec, None), "labels": P(bspec, None)})
+        if kind == "prefill":
+            return (pspecs, {"tokens": P(bspec, None)})
+        # decode: cache sharding depends on the arch's KV divisibility
+        if cfg.is_mla:
+            if bspec is not None:
+                c_spec = (P(None, bspec, "model", None),
+                          P(None, bspec, "model", None, None))
+            else:
+                c_spec = (P(None, None, "model", None),
+                          P(None, None, "model", None, None))
+        elif self._kv_shardable:
+            if bspec is not None:
+                c_spec = (P(None, bspec, None, "model", None),) * 2
+            else:  # long_500k: batch=1 -> sequence goes on the data axes
+                c_spec = (P(None, None, dp, "model", None),) * 2
+        else:
+            if bspec is not None:
+                c_spec = (P(None, bspec, "model", None, None),) * 2
+            else:
+                c_spec = (P(None, None, dp, None, None),) * 2
+        return (pspecs, c_spec,
+                {"tokens": P(bspec, None), "pos": P()})
 
 
 def model_flops(cfg: TransformerConfig, tokens: int,

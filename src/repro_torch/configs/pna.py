@@ -26,13 +26,16 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.sharding import P
 from repro_torch.models.common import cross_entropy
 from repro_torch.models.gnn import (PNA, PNAConfig, forward_minibatch,
                                     init_pna, loss_dense, loss_sparse,
                                     take_rows)
 from repro_torch.train.loop import make_train_step
-from repro_torch.train.optimizer import AdamWConfig, adamw_specs
+from repro_torch.train.optimizer import (AdamWConfig, AdamWState,
+                                         adamw_specs)
 
+from .recsys_common import dp_of
 from .specs import CellDef, TensorSpec, param_specs
 
 
@@ -151,6 +154,29 @@ class PNAArch:
                      "seed_idx": TensorSpec((spec["seeds"],), i32),
                      "labels": TensorSpec((spec["seeds"],), i32)}
         return (params, adamw_specs(params), batch)
+
+    def in_shardings(self, cfg, shape: str, mesh):
+        """The reference's specs of the cell's step arguments: parameters
+        and moments replicated; the batch by regime (the sparse regime's
+        nodes on ``model`` for the padded large graphs, whose node count
+        is a multiple of 512; Cora's replicated)."""
+        spec = PNA_SHAPES[shape]
+        dp = dp_of(mesh)
+        pspec = {k: P() for k in self.abstract_params(cfg)}
+        ospec = AdamWState(step=P(), mu=pspec, nu=pspec)
+        if spec["regime"] == "sparse":
+            nspec = "model" if spec["n_nodes"] % 512 == 0 else None
+            batch = {"feats": P(nspec, None), "src": P(dp), "dst": P(dp),
+                     "labels": P(nspec), "label_mask": P(nspec)}
+        elif spec["regime"] == "dense":
+            batch = {"feats": P(dp, None, None), "adj": P(dp, None, None),
+                     "labels": P(dp)}
+        else:
+            batch = {"feats": P("model", None),
+                     "src1": P(dp), "dst1": P(dp),
+                     "src2": P(dp), "dst2": P(dp),
+                     "seed_idx": P(dp), "labels": P(dp)}
+        return (pspec, ospec, batch)
 
 
 ARCH = PNAArch()

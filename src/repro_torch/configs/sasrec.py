@@ -12,13 +12,15 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.sharding import P
 from repro_torch.models.recsys import (SASRec, SASRecConfig, index_rows,
                                        init_sasrec, sasrec_forward,
                                        sasrec_loss)
 from repro_torch.train.optimizer import adamw_specs
 
 from .recsys_common import (RECSYS_SHAPES, REDUCED_RECSYS_SHAPES,
-                            RecsysArchBase, TensorSpec)
+                            RecsysArchBase, TensorSpec, all_axes, dp_of,
+                            recsys_param_spec_tree)
 
 FULL = SASRecConfig(n_items=1_048_576)
 REDUCED = SASRecConfig(n_items=512, embed_dim=16, n_blocks=1, seq_len=10)
@@ -82,6 +84,20 @@ class SASRecArch(RecsysArchBase):
                              "target": TensorSpec((b,), torch.int32)})
         return (params, {"seq": TensorSpec((1, s), torch.int32)},
                 TensorSpec((spec["n_candidates"],), torch.int32))
+
+    def in_shardings(self, cfg, shape: str, mesh):
+        """The reference's specs of the cell's step arguments (the
+        parameters keyed by name; the same layouts in both packages)."""
+        spec = RECSYS_SHAPES[shape]
+        dp = dp_of(mesh)
+        pspec = recsys_param_spec_tree(self.abstract_params(cfg), mesh)
+        if spec["kind"] == "train":
+            bs = {"seq": P(dp, None), "pos": P(dp, None),
+                  "neg": P(dp, None, None)}
+            return (pspec, self.opt_specs(pspec), bs)
+        if spec["kind"] == "serve":
+            return (pspec, {"seq": P(dp, None), "target": P(dp)})
+        return (pspec, {"seq": P(None, None)}, P(all_axes(mesh)))
 
 
 ARCH = SASRecArch()

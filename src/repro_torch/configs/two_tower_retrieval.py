@@ -19,13 +19,15 @@ import torch
 
 from repro_torch.device import DeviceLike
 from repro_torch.distributed.collectives import Mesh, all_gather_cat, top_k
+from repro_torch.distributed.sharding import P, linear_layout
 from repro_torch.kernels.filtered_topk import filtered_topk
 from repro_torch.models.recsys import (TwoTower, TwoTowerConfig,
                                        init_two_tower, two_tower_loss)
 from repro_torch.train.optimizer import adamw_specs
 
 from .recsys_common import (RECSYS_SHAPES, REDUCED_RECSYS_SHAPES,
-                            RecsysArchBase, TensorSpec)
+                            RecsysArchBase, TensorSpec, all_axes, dp_of,
+                            recsys_param_spec_tree)
 
 FULL = TwoTowerConfig(n_users=4_194_304, n_items=2_097_152)
 REDUCED = TwoTowerConfig(n_users=1024, n_items=512, n_user_feats=2,
@@ -144,6 +146,26 @@ class TwoTowerArch(RecsysArchBase):
         e = cfg.tower_dims[-1]
         return (params, batch, TensorSpec((n, e), torch.float32),
                 TensorSpec((b, n), torch.bool))
+
+    def in_shardings(self, cfg, shape: str, mesh):
+        """The reference's specs of the cell's step arguments, the
+        parameters' keyed by the port's names (the towers' ``nn.Linear``
+        weights carry the reference's (in, out) spec transposed)."""
+        spec = RECSYS_SHAPES[shape]
+        dp = dp_of(mesh)
+        axes = all_axes(mesh)
+        pspec = recsys_param_spec_tree(
+            self.abstract_params(cfg), mesh,
+            linear_layout("user_tower", "item_tower"))
+        bs = {"user_id": P(dp), "user_feats": P(dp, None),
+              "item_id": P(dp), "logq": P(dp)}
+        if spec["kind"] == "train":
+            return (pspec, self.opt_specs(pspec), bs)
+        if spec["kind"] == "serve":
+            return (pspec, bs)
+        rep = {k: P(*([None] * (2 if k == "user_feats" else 1)))
+               for k in bs}
+        return (pspec, rep, P(axes, None), P(None, axes))
 
 
 ARCH = TwoTowerArch()

@@ -114,6 +114,11 @@ class Mesh:
         i = self.axis_index(axes)
         return slice(i * b, (i + 1) * b)
 
+    def block_start(self, n: int, axes: Axes) -> int:
+        """The first index of :meth:`block`; 0 on a rank outside the mesh,
+        whose blocks are empty."""
+        return 0 if self.coordinate is None else self.block(n, axes).start
+
     def group(self, axis: str):
         """The process group of ``axis`` through this rank, or ``None``
         on a mesh without a process group."""
@@ -284,3 +289,120 @@ def sharded_topk(mesh: Mesh, dp: Axes, tp: str = "model"):
         return apply
 
     return make
+
+
+def all_reduce(t: Tensor, mesh: Mesh, axes: Axes,
+               op=dist.ReduceOp.SUM) -> Tensor:
+    """``t`` reduced in place over mesh ``axes`` (one name or several:
+    ``jax.lax.psum`` / ``pmax``), and returned.  A mesh without a process
+    group reduces over one device: ``t`` as it is."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    for a in axes:
+        g = mesh.group(a)
+        if g is not None:
+            dist.all_reduce(t, op=op, group=g)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Megatron-style model-parallel embedding lookup
+# ---------------------------------------------------------------------------
+
+
+def make_sharded_lookup(mesh: Mesh, dp: Axes, tp: str = "model"):
+    """Row-sharded table lookup: local mask-take, sum over the ``tp`` axis.
+
+    Returns ``lookup(table_l, ids_l) -> out_l``, called by every rank of
+    the mesh with its blocks (the reference's ``shard_map`` body): the
+    table (V, D) split ``P(tp, None)``, the ids (B, ...) split
+    ``P(dp, ...)``; the output (B, ..., D) comes back split ``P(dp, ...)``
+    (this rank's rows).  Each rank takes the rows of its own block and
+    zeroes the ids it does not own.  As in the reference, an id of -1 or
+    one >= V reads zeros: no shard owns it (``default_lookup`` instead
+    clamps ids >= V to the last row)."""
+    del dp                      # the ids arrive cut; the output stays so
+
+    def lookup(table: Tensor, ids: Tensor) -> Tensor:
+        rows = table.shape[0]                     # rows per shard
+        lo = mesh.axis_index(tp) * rows
+        rel = ids.long() - lo
+        in_range = (ids >= 0) & (rel >= 0) & (rel < rows)
+        safe = rel.clamp(0, rows - 1)
+        out = table.index_select(0, safe.reshape(-1)).reshape(
+            *ids.shape, table.shape[1])
+        out = torch.where(in_range[..., None], out, out.new_zeros(()))
+        return all_reduce(out, mesh, tp)
+
+    return lookup
+
+
+# ---------------------------------------------------------------------------
+# split-KV decode attention (flash-decoding pattern; long_500k batch=1)
+# ---------------------------------------------------------------------------
+
+
+def split_kv_decode_attention(mesh: Mesh, seq_axis: str = "data"):
+    """Attention of a single query position against a sequence-sharded KV
+    cache: each shard computes a partial (max, sum-exp, weighted-V) and the
+    partials combine over ``seq_axis`` (a max, then sums), in fp32 —
+    numerically a full softmax.
+
+    Returns ``apply(q, k_l, v_l, valid_l) -> out``: q (B, H, hd) whole on
+    every rank; k / v (B, S_local, H, hd) and valid (B, S_local) this
+    rank's block of the sequence (``P(None, seq_axis)``); out (B, H, hd) in
+    q's dtype, the same on every rank.  q and k have the same head count
+    (no GQA).  A query with no valid key anywhere gives zeros, not NaN
+    (the sum-exp is floored at 1e-30); a shard with no valid key adds
+    nothing."""
+
+    def apply(q: Tensor, k: Tensor, v: Tensor, valid: Tensor) -> Tensor:
+        s = torch.einsum("bhd,bshd->bhs", q.float(), k.float())
+        keep = valid[:, None, :]
+        s = torch.where(keep, s, s.new_full((), float("-inf")))
+        m = all_reduce(s.amax(dim=-1), mesh, seq_axis, dist.ReduceOp.MAX)
+        e = torch.exp(s - m[..., None])
+        e = torch.where(keep, e, e.new_zeros(()))
+        z = all_reduce(e.sum(dim=-1), mesh, seq_axis)             # (B, H)
+        wv = all_reduce(torch.einsum("bhs,bshd->bhd", e, v.float()), mesh,
+                        seq_axis)
+        return (wv / z.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+    return apply
+
+
+# ---------------------------------------------------------------------------
+# int8 quantized gradient all-reduce with error feedback
+# ---------------------------------------------------------------------------
+
+
+def quantize_int8(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """(int8 codes, fp32 scale): the scale is max|x| over the whole tensor
+    / 127 + 1e-12 (kept with x's number of dims), the codes ``x / scale``
+    rounded half to even and clipped to ±127."""
+    dims = tuple(range(x.dim()))
+    scale = x.abs().amax(dim=dims, keepdim=True) / 127.0 + 1e-12
+    q = torch.round(x / scale).clamp_(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: Tensor, scale: Tensor) -> Tensor:
+    return q.float() * scale
+
+
+def compressed_psum(x: Tensor, mesh: Mesh, axis: Axes,
+                    error: Optional[Tensor] = None
+                    ) -> Tuple[Tensor, Tensor]:
+    """int8-compressed mean over mesh ``axis`` with an error-feedback
+    residual (EF-SGD; arXiv:1901.09847): ``x`` (plus the last call's
+    ``error``) is quantized (:func:`quantize_int8`), the dequantized values
+    are summed over the axis and divided by its size.  Returns (mean,
+    new error residual ``x - dequantized``), the reference's arithmetic.
+    Like the reference, the sum runs over the dequantized fp32 values: the
+    wire carries fp32, not int8."""
+    if error is not None:
+        x = x + error
+    q, scale = quantize_int8(x)
+    deq = dequantize_int8(q, scale)
+    new_error = x - deq
+    total = all_reduce(deq, mesh, axis)
+    return total / float(mesh.axis_size(axis)), new_error

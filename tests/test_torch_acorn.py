@@ -8,8 +8,9 @@ step on ``jax.make_mesh((1, 1), ("data", "model"))``; exact ties, where
 ids must come out lower index first.  Spawned ``gloo`` groups of 2 and 4
 ranks: the same steps on every ``(data, model)`` factorisation of the
 world (each rank passes its row block), with the two-tower
-``filtered_retrieval_step`` beside them.  Every rank must return identical
-arrays.  Tolerance: ids identical except at near ties, distances within
+``filtered_retrieval_step`` beside them, and the tie case on a mesh of
+half the world, whose other ranks place empty blocks with base 0 and take
+the mesh's answer.  Every rank must return identical arrays.  Tolerance: ids identical except at near ties, distances within
 rtol 1e-5 / atol 1e-6 of |q|^2 + |x|^2 (the expanded form,
 ``torch_parity.assert_ids_match``); on integer data (exact fp32 scores)
 ids and distances bit for bit.
@@ -24,6 +25,8 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.configs.acorn import REDUCED_ACORN_SHAPES
 from repro_torch.convert import two_tower_params_from_arrays
+from repro_torch.distributed.collectives import get_mesh
+from repro_torch.distributed.sharding import P, place
 from repro_torch.launch.mesh import (dp_axes, make_corpus_serving_mesh,
                                      make_host_mesh, make_production_mesh)
 from torch_parity import assert_ids_match, assert_ranks_equal, run_ranks
@@ -63,9 +66,9 @@ def ref_step(shape, x, q, masks, optimized, chunk):
 def port_step(mesh, shape, x, q, masks, optimized, chunk):
     step = ARCH.step_fn(None, shape, reduced=True, mesh=mesh,
                         optimized=optimized, chunk=chunk)
-    args = ARCH.in_shardings(None, shape, mesh)(
-        torch.as_tensor(x), torch.as_tensor(q), torch.as_tensor(masks))
-    ids, d = step(*args)
+    ids, d = step(*ARCH.place_inputs(shape, mesh, torch.as_tensor(x),
+                                     torch.as_tensor(q),
+                                     torch.as_tensor(masks)))
     return ids.numpy(), d.numpy()
 
 
@@ -144,9 +147,12 @@ def test_in_shardings_and_random_inputs():
     x2, _, m2 = ARCH.random_inputs("serve_1m", seed=5, reduced=True,
                                    device="cpu")
     assert torch.equal(x, x2) and torch.equal(m, m2)
-    xl, ql, ml, base = ARCH.in_shardings(None, "serve_1m", mesh)(x, q, m)
-    assert xl.data_ptr() == x.data_ptr() and base == 0
-    assert torch.equal(ml, m) and ql is q
+    specs = ARCH.in_shardings(None, "serve_1m", mesh)
+    assert specs == (P(("data", "model"), None), P(), P(None,
+                                                         ("data", "model")))
+    xl, ql, ml = place((x, q, m), specs, mesh)
+    assert xl is x and ml is m and ql is q          # one rank: no copy
+    assert ARCH.place_inputs("serve_1m", mesh, x, q, m)[3] == 0
 
 
 def gather_order(n, dp, tp):
@@ -245,7 +251,15 @@ def _mesh_rank(rank, world, cases, tt):
             out[f"{name}/{tp}"] = port_step(mesh, shape, x, q, masks,
                                             optimized, chunk)
         out[f"two_tower/{tp}"] = two_tower_step(mesh, *tt)
-    return out
+    # a mesh of half the world: the other ranks are outside it, place
+    # empty blocks with base 0 and take the mesh's answer
+    sub = get_mesh((world // 2, 1), ("data", "model"))
+    shape, x, q, masks, optimized, chunk = cases["ties"]
+    out["ties/sub"] = port_step(sub, shape, x, q, masks, optimized, chunk)
+    xl, _, ml, base = ARCH.place_inputs(shape, sub, torch.as_tensor(x),
+                                        torch.as_tensor(q),
+                                        torch.as_tensor(masks))
+    return {"steps": out, "placed": (xl.shape[0], ml.shape[1], base)}
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -259,16 +273,22 @@ def test_steps_on_gloo_meshes(world, two_tower, tmp_path):
     cases["ties"] = ("serve_1m", x, q, masks, True, 256)
     got = run_ranks(_mesh_rank, world, tmp_path, cases,
                     (tree, batch, cand, mask))
+    n = x.shape[0]
+    for r, res in enumerate(got):        # ranks >= world // 2: outside
+        rows = n // (world // 2) if r < world // 2 else 0
+        assert res["placed"] == (rows, rows, r * rows), (r, res["placed"])
+    got = [res["steps"] for res in got]
     assert_ranks_equal(got)
     for key, (ids, d) in got[0].items():
         name, tp = key.rsplit("/", 1)
-        tp = int(tp)
+        dp, tp = (world // 2, 1) if tp == "sub" else (world // int(tp),
+                                                      int(tp))
         if name == "two_tower":
             assert_two_tower((ids, d), want_tt(
-                gather_order(cand.shape[0], world // tp, tp)), cand, u)
+                gather_order(cand.shape[0], dp, tp)), cand, u)
             continue
         shape, x, q, masks, optimized, chunk = cases[name]
-        order = gather_order(x.shape[0], world // tp, tp)
+        order = gather_order(x.shape[0], dp, tp)
         want_ids, want_d = ref_step(shape, x[order], q, masks[:, order],
                                     optimized, chunk)
         want_ids = np.where(want_ids >= 0, order[np.maximum(want_ids, 0)],

@@ -83,8 +83,22 @@ def test_lm_arch_runs_on_cpu_tensors(smoke, capsys, arch_id):
     assert rec["prefill_32k"].get("moe_forward_bit_identical") == (
         True if moe else None)
     assert ("experts_read" in rec["decode_32k"]) == moe
+    # the steps through sharded_step: bit-identical to the plain calls
+    sh = par["sharded"]
+    n_params = len(dict(get_arch(arch_id).module(
+        get_arch(arch_id).config(reduced=True)).named_parameters()))
+    per_layer = (n_params - 2) // get_arch(arch_id).config(
+        reduced=True).n_layers
+    n_period = 2 + per_layer * par["layers"]
+    for layout in ("baseline", "pure_dp"):
+        assert sh[f"train_{layout}"]["bit_identical_tensors"] == (
+            3 * n_period + 2)
+        assert set(sh[f"train_{layout}"]["launches"].values()) == {0}
+    assert sh["prefill_32k"]["bit_identical_tensors"] == 3
+    assert sh["decode_32k"]["bit_identical_tensors"] == 3
     log = capsys.readouterr().out
     assert f"[parity] path={arch_id} step 1 (one period, fp32)" in log
+    assert f"[lm] arch={arch_id} path=sharded_step (one period, fp32)" in log
 
 
 def test_lm_phases_compose_on_cpu(smoke, capsys, monkeypatch):
@@ -293,3 +307,60 @@ def test_launcher_trains_lm_arch_and_resumes(arch_id, tmp_path, capsys):
     assert f"{arch_id}/train_4k: 4 steps" in capsys.readouterr().out
     assert all(bool(torch.isfinite(p).all())
                for p in resumed["params"].parameters())
+
+
+def test_bits_digest_sees_one_element(smoke, monkeypatch):
+    """The digest of equal bits is equal (in chunks or whole); one element
+    one ulp off, or two elements swapped, changes it."""
+    t = torch.randn(1000, generator=torch.Generator().manual_seed(8))
+    d = smoke.bits_digest(t)
+    assert torch.equal(d, smoke.bits_digest(t.clone()))
+    monkeypatch.setattr(optimizer, "NORM_CHUNK", 64)
+    assert torch.equal(d, smoke.bits_digest(t))
+    off = t.clone()
+    off[517] = torch.nextafter(off[517], torch.tensor(2.0))
+    assert not torch.equal(d, smoke.bits_digest(off))
+    swapped = t.clone()
+    swapped[[3, 900]] = t[[900, 3]]
+    dd = smoke.bits_digest(swapped)
+    assert dd[0] == d[0] and not torch.equal(dd, d)
+    assert torch.equal(smoke.bits_digest(torch.tensor(-0.0)),
+                       smoke.bits_digest(torch.tensor(-0.0)))
+    assert not torch.equal(smoke.bits_digest(torch.tensor(-0.0)),
+                           smoke.bits_digest(torch.tensor(0.0)))
+    with pytest.raises(ValueError, match="4-byte"):
+        smoke.bits_digest(t.double())
+
+
+def test_lm_sharded_rejects_a_differing_step(smoke, monkeypatch):
+    """A sharded train step whose loss is one ulp off fails the check."""
+    from repro_torch.distributed import sharding
+    real = sharding.sharded_step
+
+    def off(step, mesh, specs):
+        run = real(step, mesh, specs)
+
+        def wrapped(*args):
+            outs = run(*args)
+            if len(outs) == 3:
+                outs = (outs[0], outs[1],
+                        torch.nextafter(outs[2], outs[2] + 1))
+            return outs
+        return wrapped
+    monkeypatch.setattr(sharding, "sharded_step", off)
+    cfg = get_arch("qwen3-8b").config(reduced=True)
+    c16 = dataclasses.replace(cfg, n_layers=1, dtype=torch.bfloat16)
+    c32 = dataclasses.replace(c16, dtype=torch.float32)
+    tok = torch.randint(0, cfg.vocab, (1, 9), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(2))
+    with pytest.raises(AssertionError, match="differs from the plain"):
+        smoke.lm_sharded(CPU, "qwen3-8b", c16, c32,
+                         {"tokens": tok[:, :-1], "labels": tok[:, 1:]})
+
+
+def test_split_kv_check_on_cpu(smoke):
+    rec = smoke.split_kv_check(CPU, *smoke.SPLIT_KV_REDUCED)
+    assert rec["empty_row_zero"] and rec["max_abs_err"] < 1e-6
+    assert rec["kv"] == smoke.SPLIT_KV_REDUCED[0]
+    assert set(rec["sharded_launches"].values()) == {0}
+    assert rec["bytes_read"] > 2 * 2 * np.prod(rec["kv"])

@@ -95,3 +95,39 @@ def test_exact_topk64_is_the_masked_top_k():
     assert torch.equal(ids[1:].long(), want_i[1:, :10])
     assert torch.allclose(d[1:], want_d[1:, :10], rtol=1e-9)
     assert (ids[0, 5:] == -1).all() and torch.isinf(d[0, 5:]).all()
+
+
+def test_mesh_collectives_and_sharded_step_on_a_group(group, capsys):
+    """The card's checks of the mesh collectives and of ``sharded_step``
+    through a one-rank group, as the card runs them through its NCCL
+    group: every reduction goes through ``torch.distributed``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.train import init_adamw
+    cpu = torch.device("cpu")
+    calls = []
+    real = dist.all_reduce
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    dist.all_reduce = counted
+    try:
+        table = torch.randn((500, 8),
+                            generator=torch.Generator().manual_seed(1))
+        assert group.sharded_lookup_check(cpu, table)["bit_identical"]
+        assert group.split_kv_check(
+            cpu, *group.SPLIT_KV_REDUCED)["empty_row_zero"]
+        assert group.compressed_psum_check(table, "x")["bit_identical_to_cpu"]
+    finally:
+        dist.all_reduce = real
+    assert len(calls) == 1 + 3 + 2        # lookup; max, sum, sum; 2 means
+    arch = get_arch("two-tower-retrieval")
+    cfg = arch.config(reduced=True)
+    model = arch.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in
+             group.zipf_batch(cfg, 32, seed=3).items()}
+    rec, opt = group.sharded_train(cpu, "two-tower-retrieval", cfg,
+                                   "train_batch", model, init_adamw(model),
+                                   batch, "two-tower")
+    assert rec["bit_identical_tensors"] == 32 and int(opt.step) == 1
+    assert rec["mesh"] == {"data": 1, "model": 1}

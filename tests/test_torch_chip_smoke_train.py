@@ -81,13 +81,22 @@ def test_two_tower_train_runs_on_cpu_tensors(smoke, capsys):
     assert "[train] arch=two-tower-retrieval shape=train_batch" in out
     assert "[parity] path=two-tower train_batch rows=16" in out
     assert not any(p.requires_grad for p in model.parameters())
+    # the sharded step and the compressed mean of the user table's gradient
+    shard, psum = rec["sharded"], rec["compressed_psum"]
+    assert shard["bit_identical_tensors"] == 3 * 10 + 2
+    assert set(shard["sharded_launches"].values()) == {0}
+    assert psum["bit_identical_to_cpu"] and psum["shape"] == (1024, 16)
+    assert 0 < psum["call1_rel_err"] < smoke.PSUM_REL_TOL
+    assert "[train] path=two-tower sharded_step" in out
+    assert "[train] path=two-tower user_emb gradient compressed_psum" in out
 
 
 def test_pna_train_runs_on_cpu_tensors(smoke, capsys):
     rec, model, opt = smoke.pna_train(CPU, reduced=True, steps=3)
     assert rec["graphs"] == 4 and rec["layers"] == 2
-    assert len(rec["losses"]) == 3 and int(opt.step) == 4
+    assert len(rec["losses"]) == 3 and int(opt.step) == 5   # + sharded
     assert set(rec["kernel_launches"].values()) == {0}
+    assert rec["sharded"]["bit_identical_tensors"] == 3 * 6 + 2
     assert "[parity] path=pna molecule train step 1" in capsys.readouterr().out
 
 
@@ -193,3 +202,51 @@ def test_bag_library_matches_plain(smoke, kind, mode):
     torch.testing.assert_close(fn(), embedding_bag_ref(ids, table, mode),
                                rtol=1e-5, atol=1e-5)
     assert "1 call" in calls
+
+
+def test_sharded_train_rejects_a_differing_step(smoke, monkeypatch):
+    """A sharded step whose result differs from the plain one's in one
+    parameter's last bit fails the check."""
+    from repro_torch.distributed import sharding
+    real = sharding.sharded_step
+
+    def off(step, mesh, specs):
+        run = real(step, mesh, specs)
+
+        def wrapped(*args):
+            model, opt, loss = run(*args)
+            w = model.user_tower[0].bias
+            w.data = torch.nextafter(w.data, w.data + 1)
+            return model, opt, loss
+        return wrapped
+    monkeypatch.setattr(sharding, "sharded_step", off)
+    from repro_torch.train import init_adamw
+    model = _model()
+    batch = {k: torch.from_numpy(v)
+             for k, v in smoke.zipf_batch(model.cfg, 32, seed=2).items()}
+    with pytest.raises(AssertionError, match="differs from the plain"):
+        smoke.sharded_train(CPU, "two-tower-retrieval", model.cfg,
+                            "train_batch", model, init_adamw(model), batch,
+                            "two-tower")
+
+
+def test_compressed_psum_check_on_cpu(smoke, monkeypatch):
+    g = torch.randn((300, 7), generator=torch.Generator().manual_seed(2))
+    g[5:40] = 0.0
+    rec = smoke.compressed_psum_check(g, "x")
+    assert rec["bit_identical_to_cpu"]
+    assert rec["call1_rel_err"] <= 1 / 254 + 1e-6
+    assert rec["call2_rel_err"] <= 1 / 254 + 1e-6
+    monkeypatch.setattr(smoke, "PSUM_REL_TOL", 1e-4)
+    with pytest.raises(AssertionError, match="call 1: error"):
+        smoke.compressed_psum_check(g, "x")
+
+
+def test_sharded_lookup_check_on_cpu(smoke):
+    table = torch.randn((1000, 8), generator=torch.Generator().manual_seed(3))
+    rec = smoke.sharded_lookup_check(CPU, table)
+    n = np.prod(smoke.LOOKUP_SHAPE)
+    assert rec["bit_identical"] and rec["ids"] == smoke.LOOKUP_SHAPE
+    assert abs(rec["padding"] / n - smoke.LOOKUP_PAD) < 0.01
+    assert abs(rec["over_v"] / n - smoke.LOOKUP_OVER) < 0.002
+    assert set(rec["sharded_launches"].values()) == {0}

@@ -191,9 +191,15 @@ def test_param_counts_and_model_flops_match_reference(arch_id):
 
 
 def test_in_shardings_wait_for_the_mesh_rules():
+    """The mesh rules answer (their parity with the reference's is
+    ``tests/test_torch_sharding.py``'s); ``loss_fn`` takes train cells
+    only."""
+    from repro_torch.distributed.sharding import AbstractMesh
     arch = get_arch("qwen3-8b")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5e"):
-        arch.in_shardings(arch.config(), "train_4k", None)
+    pspecs, opt_specs, batch = arch.in_shardings(
+        arch.config(), "train_4k", AbstractMesh((16, 16), ("data", "model")))
+    assert set(pspecs) == set(arch.abstract_params(arch.config()))
+    assert opt_specs.mu == pspecs and tuple(batch["tokens"]) == ("data", None)
     with pytest.raises(ValueError, match="not a train cell"):
         arch.loss_fn(arch.config(reduced=True), "decode_32k")
 
