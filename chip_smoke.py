@@ -318,6 +318,21 @@ Phases, each printed on its own line:
            zero) within 1e-5 of a float64 softmax taken in chunks on
            the card, ms per call beside its bytes at 3.35 TB/s
            (``split_kv_check``).
+  roofline each timed step counted on meta tensors by
+           ``repro_torch.launch.op_cost.OpCounter`` in a process of its own,
+           started before the kernel build and waited for after it, before
+           the first timed phase (no process group there; ~22 s of host
+           time, logged as ``count_host_s`` beside ``waited_s``): the acorn
+           variants but serve_25m's 8,192-row blocks, each LM arch's
+           ``train_4k`` and ``prefill_32k`` at ``LM_CUTS``, two-tower
+           ``train_batch``.
+           One ``[roofline]`` line per step: counted FLOPs, the compute
+           and memory terms at the H100's peaks
+           (``repro_torch.launch.roofline``), ``flop_share = t_compute /
+           measured`` (asserted <= 1.05: a step may not beat its counted
+           FLOP time) and ``byte_share = t_memory / measured`` (not
+           asserted: eager per-op bytes exceed HBM traffic where L2 keeps
+           one op's output for the next).
 The second-to-last lines are the ``{"kernels": [...]}`` record and the
 card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
@@ -337,9 +352,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM data-sheet peaks (dense): HBM bandwidth and fp32 (non-tensor) rate
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
+# H100 SXM data-sheet peaks (dense), defined once in the port's roofline
+from repro_torch.launch.roofline import (HBM_BYTES_PER_S,  # noqa: E402
+                                         PEAK_BF16_PER_S, PEAK_FP32_PER_S)
 
 N, D, CARD = 1_000_000, 128, 12
 M, GAMMA, M_BETA, K, EF = 32, 12, 64, 10, 64
@@ -587,19 +602,20 @@ def time_ms(fn, iters: int, flush, warmup: int = 3) -> float:
 
 
 def bound(bytes_moved: float, flops: float) -> tuple:
-    tb = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    tb = bytes_moved / HBM_BYTES_PER_S * 1e3
     to = flops / PEAK_FP32_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def gather_distance_bound(ids, q, x) -> tuple:
-    """Each input read once: ids, the queries, every distinct row the
-    valid ids name; each output written once.  3 flops per element."""
+    """``gather_distance_cost`` of this call's data: every distinct row
+    the valid ids name read once, 3 flops per valid id and column."""
+    from repro_torch.kernels.cost import gather_distance_cost
     valid = ids[ids >= 0]
-    rows = int(valid.unique().numel())
-    d = x.shape[1]
-    byts = ids.numel() * 4 + q.numel() * 4 + rows * d * 4 + ids.numel() * 4
-    return bound(byts, int(valid.numel()) * d * 3)
+    flops, byts = gather_distance_cost(
+        *ids.shape, *x.shape, valid=int(valid.numel()),
+        rows=int(valid.unique().numel()))
+    return bound(byts, flops)
 
 
 def neighbor_expand_bound(row, tbl, pos, pm, vis, strategy, m, m_beta):
@@ -942,14 +958,17 @@ def filtered_topk_bound(q, x, mask, k: int, metric: str) -> dict:
     dists) output; 2 d flops per passing (query, row) pair, plus 2 d per
     row read for |x|^2 under l2.  The dense figures (every row read and
     every pair scored) are returned beside it."""
+    from repro_torch.kernels.cost import filtered_topk_cost
     b, n = mask.shape
     d = x.shape[1]
     rows = int(mask.any(dim=0).sum())
-    pairs = int(mask.sum())
-    io = b * n + b * d * 4 + b * k * 8
-    norms = 2 * d if metric == "l2" else 0
-    need, by = bound(io + rows * d * 4, 2 * d * pairs + norms * rows)
-    dense, dense_by = bound(io + n * d * 4, 2 * d * b * n + norms * n)
+    flops, byts = filtered_topk_cost(b, n, d, k, metric, rows=rows,
+                                     pairs=int(mask.sum()))
+    need, by = bound(byts, flops)
+    # the dense figures: filtered_topk's own cost on meta tensors
+    flops, byts = filtered_topk_cost(b, n, d, k, metric, rows=n,
+                                     pairs=b * n)
+    dense, dense_by = bound(byts, flops)
     return dict(bound_ms=need, bound_by=by, dense_bound_ms=dense,
                 dense_bound_by=dense_by, rows_needed=rows)
 
@@ -1441,12 +1460,13 @@ def assert_pna_blocks(got, want, f: int, what: str) -> float:
 
 
 def pna_aggregate_bound(adj, feats) -> tuple:
-    """Bytes: adj and feats read once, the (B, N, 4F) output written once.
-    Operations: 7 per (edge, feature) of this adjacency (h^2, two fused
-    multiply-adds, max, min)."""
-    b, n, f = feats.shape
-    byts = 4 * (adj.numel() + feats.numel() + b * n * 4 * f)
-    return bound(byts, 7 * int((adj > 0).sum()) * f)
+    """``pna_aggregate_cost`` of this adjacency's edges: adj and feats
+    read once, the output written once, 7 operations per (edge,
+    feature)."""
+    from repro_torch.kernels.cost import pna_aggregate_cost
+    flops, byts = pna_aggregate_cost(*feats.shape,
+                                     edges=int((adj > 0).sum()))
+    return bound(byts, flops)
 
 
 def measure_pna_aggregate(adj, feats, flush, base, floor_ms: float,
@@ -1646,15 +1666,16 @@ def assert_bag_close(got, want, what: str) -> float:
 
 
 def embedding_bag_bound(ids, table, mode: str) -> tuple:
-    """Bytes: each distinct row the valid ids name (clipped) read once, the
-    ids, and the (B, D) output written once.  Operations: one add per
-    valid id and column, plus a division per output under mean."""
+    """``embedding_bag_cost`` of this call's ids: each distinct row the
+    valid ids name (clipped) read once, one add per valid id and column,
+    plus a division per output under mean."""
+    from repro_torch.kernels.cost import embedding_bag_cost
     v, d = table.shape
     valid = ids[ids >= 0]
-    rows = int(valid.clamp(max=v - 1).unique().numel())
-    byts = rows * d * 4 + ids.numel() * 4 + ids.shape[0] * d * 4
-    ops = int(valid.numel()) * d + (ids.shape[0] * d if mode == "mean" else 0)
-    return bound(byts, ops)
+    flops, byts = embedding_bag_cost(
+        *ids.shape, d, mode, valid=int(valid.numel()),
+        rows=int(valid.clamp(max=v - 1).unique().numel()))
+    return bound(byts, flops)
 
 
 def bag_library(ids, table, mode: str) -> tuple:
@@ -3248,7 +3269,7 @@ def split_kv_check(dev, shape=SPLIT_KV_SHAPE, valid_rows=SPLIT_KV_VALID,
                kv=tuple(k.shape), kv_dtype="bfloat16", valid_rows=valid_rows,
                empty_row_zero=True, max_abs_err=err,
                first_call_ms=round(first_ms, 3), bytes_read=nbytes,
-               bytes_bound_ms=round(nbytes / PEAK_BYTES_PER_S * 1e3, 4),
+               bytes_bound_ms=round(nbytes / HBM_BYTES_PER_S * 1e3, 4),
                sharded_launches=launches, **peak)
     if dev.type == "cuda":
         flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
@@ -4770,7 +4791,6 @@ LM_TOL = 1e-5               # rtol, and atol x the largest |value|
 # 1.14 % for qwen3 and gemma3 at the train cells' cut, tests/lm_probe.py;
 # an update gone wrong differs on about all of them)
 LM_BF16_STEP_TOL = 0.1
-PEAK_BF16_PER_S = 989e12    # H100 SXM data sheet, dense bf16
 # FULL width: every width, head count, expert count, top-k, window and
 # vocabulary as published; (layers, batch) of each cell, the layers in
 # whole periods of the layer pattern (gemma3's is 6: five local, one
@@ -5343,7 +5363,7 @@ def lm_decode(dev, arch_id: str, shape: str, cfg, b: int, smax: int, rng,
                step_max_ms=round(max(ms), 3),
                tokens_per_s=round(b / p50 * 1e3, 1),
                **peak_memory(dev, mem0), bytes_per_step=nbytes,
-               bytes_bound_ms=round(nbytes / PEAK_BYTES_PER_S * 1e3, 3),
+               bytes_bound_ms=round(nbytes / HBM_BYTES_PER_S * 1e3, 3),
                kernel_launches=launches)
     if cfg.is_moe:
         rec["experts_read"] = experts
@@ -5411,6 +5431,151 @@ def lm_phases(dev, reduced: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# roofline: the timed steps counted on meta tensors
+# ---------------------------------------------------------------------------
+
+# a timed step may not beat its counted FLOPs at the card's peaks by more
+ROOFLINE_FLOP_SHARE_MAX = 1.05
+# the acorn variants the mesh phase times, (shape, optimized, chunk), but
+# serve_25m at MESH_CHUNK: its 3,072 scan blocks take 15 s to run on meta
+# tensors (the meta kernels are Python), half the counting's 30 s, and
+# count within 0.002 % of the FLOPs and 0.4 % of the bytes of its
+# MESH_WIDE_CHUNK twin
+ROOFLINE_ACORN = (("serve_1m", False, MESH_CHUNK),
+                  ("serve_1m", True, MESH_CHUNK),
+                  ("serve_1m", True, MESH_WIDE_CHUNK),
+                  ("serve_25m", True, MESH_WIDE_CHUNK))
+
+
+def acorn_key(shape: str, opt: bool, chunk: int) -> tuple:
+    """The key of ``main``'s ``acorn_ms`` for a timed acorn variant."""
+    return (("25m",) if shape == "serve_25m" else ()) + (opt, chunk)
+
+
+def roofline_steps(reduced: bool = False) -> list:
+    """[(name, build)]: the timed steps, each ``build()`` returning (step,
+    args) on ``meta`` tensors at the shapes the card runs (the acorn
+    variants on a one-device mesh, each LM arch's ``train_4k`` and
+    ``prefill_32k`` at ``LM_CUTS``, two-tower ``train_batch``)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.acorn import ACORN_SHAPES, REDUCED_ACORN_SHAPES
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import init_adamw
+
+    def meta(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def acorn(shape, opt, chunk):
+        spec = (REDUCED_ACORN_SHAPES if reduced else ACORN_SHAPES)[shape]
+        b, n, d = spec["batch"], spec["n"], spec["d"]
+        arch, mesh = get_arch("acorn"), make_host_mesh()
+        step = arch.step_fn(None, shape, reduced=reduced, mesh=mesh,
+                            k=spec["k"], optimized=opt, chunk=chunk)
+        return step, arch.place_inputs(shape, mesh, meta((n, d)),
+                                       meta((b, d)),
+                                       meta((b, n), torch.bool))
+
+    def lm(arch_id, shape, cfg, b, s):
+        arch = get_arch(arch_id)
+        model = arch.module(cfg)
+        tok = meta((b, s), torch.int32)
+        if shape == "train_4k":
+            return arch.step_fn(cfg, shape), (
+                model, init_adamw(model), {"tokens": tok, "labels": tok})
+        return arch.step_fn(cfg, shape), (model, {"tokens": tok})
+
+    def two_tower():
+        arch = get_arch("two-tower-retrieval")
+        cfg = arch.config(reduced=reduced)
+        _, _, specs = arch.abstract_inputs(cfg, "train_batch",
+                                           reduced=reduced)
+        model = arch.module(cfg)
+        batch = {k: meta(v.shape, v.dtype) for k, v in specs.items()}
+        return arch.step_fn(cfg, "train_batch"), (model, init_adamw(model),
+                                                  batch)
+
+    out = [(f"acorn {shape} optimized={opt} chunk={chunk if opt else '-'}",
+            lambda a=(shape, opt, chunk): acorn(*a))
+           for shape, opt, chunk in ROOFLINE_ACORN]
+    for arch_id in LM_ARCHES:
+        plan = lm_plan(arch_id, reduced)
+        for shape in ("train_4k", "prefill_32k"):
+            out.append((f"{arch_id} {shape}",
+                        lambda a=(arch_id, shape, *plan[shape]): lm(*a)))
+    out.append(("two-tower-retrieval train_batch", two_tower))
+    return out
+
+
+def roofline_counts(reduced: bool = False) -> dict:
+    """{name: counts} of every :func:`roofline_steps` step, each run once
+    on ``meta`` tensors under ``OpCounter`` (no process group may exist:
+    the acorn steps gather on a one-device mesh): counted FLOPs (and their
+    dot-class share), bytes, and the roofline's compute and memory terms
+    at the H100's peaks; ``"seconds"``: the host time of all of it."""
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.launch.roofline import analyze
+    t_all = time.perf_counter()
+    out = {}
+    for name, build in roofline_steps(reduced):
+        t0 = time.perf_counter()
+        step, args = build()
+        with OpCounter() as c:
+            step(*args)
+        roof = analyze(c)
+        out[name] = dict(counted_flops=roof.total_flops,
+                         dot_flops=c.dot_flops, counted_bytes=c.bytes,
+                         t_compute_ms=roof.t_compute * 1e3,
+                         t_memory_ms=roof.t_memory * 1e3,
+                         count_s=round(time.perf_counter() - t0, 3))
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def roofline_measured(acorn_ms: dict, train: dict, lm: dict) -> dict:
+    """{name: ms} of the counted steps, from the phases' records: the
+    acorn variants' ms, each LM arch's ``train_4k`` step p50 and
+    ``prefill_32k`` call, two-tower's ``train_batch`` step p50."""
+    out = {f"acorn {shape} optimized={opt} chunk={chunk if opt else '-'}":
+           acorn_ms[acorn_key(shape, opt, chunk)]
+           for shape, opt, chunk in ROOFLINE_ACORN}
+    for arch_id in LM_ARCHES:
+        out[f"{arch_id} train_4k"] = lm[arch_id]["train_4k"]["step_p50_ms"]
+        out[f"{arch_id} prefill_32k"] = lm[arch_id]["prefill_32k"]["ms"]
+    out["two-tower-retrieval train_batch"] = \
+        train["two_tower"]["step_p50_ms"]
+    return out
+
+
+def roofline_lines(counts: dict, measured: dict) -> list:
+    """One ``[roofline]`` line per counted step: its counted FLOPs, the
+    compute and memory terms, ``flop_share = t_compute / measured`` and
+    ``byte_share = t_memory / measured``.  Raises if a step's
+    ``flop_share`` exceeds ``ROOFLINE_FLOP_SHARE_MAX`` (the counter
+    overcounts, or a peak is wrong); ``byte_share`` is not gated: eager
+    per-op bytes exceed HBM traffic where L2 keeps one op's output for the
+    next."""
+    lines = []
+    for name, ms in measured.items():
+        c = counts[name]
+        flop_share = c["t_compute_ms"] / ms
+        byte_share = c["t_memory_ms"] / ms
+        if not flop_share <= ROOFLINE_FLOP_SHARE_MAX:
+            raise AssertionError(
+                f"{name}: measured {ms} ms beats its counted FLOP time "
+                f"{c['t_compute_ms']:.4f} ms (share {flop_share:.3f})")
+        lines.append("[roofline] " + " ".join(f"{k}={v}" for k, v in dict(
+            step=repr(name), measured_ms=ms,
+            counted_flops=c["counted_flops"], dot_flops=c["dot_flops"],
+            counted_bytes=c["counted_bytes"],
+            t_compute_ms=round(c["t_compute_ms"], 4),
+            t_memory_ms=round(c["t_memory_ms"], 4),
+            flop_share=round(flop_share, 4),
+            byte_share=round(byte_share, 4)).items()))
+    return lines
+
+
 def all_launchers() -> list:
     """The launch-counted wrapper of every kernel of the port."""
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda
@@ -5445,6 +5610,14 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the timed steps counted on meta tensors, in a process of its own
+    # (no process group there), beside the kernel build and waited for
+    # after it
+    import concurrent.futures
+    import multiprocessing
+    counting = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    roofline_future = counting.submit(roofline_counts)
 
     from repro_torch.core import (AcornConfig, HybridIndex, SearchRequest,
                                   compile_predicates, hybrid_search,
@@ -5469,6 +5642,15 @@ def main(argv=None) -> int:
     for line in loader.BUILD_INFO.get("log", "").splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("[ptxas] " + line.strip(), file=sys.stderr)
+    # the counting ends here, before the first timed phase: no timed phase
+    # shares the host with it
+    t0 = time.perf_counter()
+    counts = roofline_future.result()
+    counting.shutdown()
+    log("roofline", steps=len(counts) - 1,
+        count_host_s=f"{counts['seconds']:.1f}",
+        waited_s=f"{time.perf_counter() - t0:.1f}",
+        ended="before the first timed phase")
     # a one-rank NCCL group: the mesh paths (retrieve and mesh phases)
     # gather through it
     mesh_group(dev)
@@ -5757,6 +5939,11 @@ def main(argv=None) -> int:
     dist.destroy_process_group()
     for rcd in records:   # the LM path runs none of the port's kernels
         rcd["lm_launches"] = lm["kernel_launches"][rcd["name"] + "_cuda"]
+
+    # ---- roofline: each timed step's counted terms beside its time ----
+    for line in roofline_lines(counts, roofline_measured(acorn_ms, train,
+                                                         lm)):
+        print(line, flush=True)
 
     log("total", seconds=f"{time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": records}))

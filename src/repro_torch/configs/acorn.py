@@ -128,6 +128,7 @@ class AcornServeArch:
                                      ((b, k), torch.float32)],
                               queries.device)
 
+        serve.mesh_explicit = True   # each rank passes its own blocks
         return serve
 
     def abstract_inputs(self, cfg, shape: str, reduced: bool = False):

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.device import DeviceLike
 from repro_torch.distributed.collectives import Mesh, all_gather_cat, top_k
-from repro_torch.distributed.sharding import P, linear_layout
+from repro_torch.distributed.sharding import P, linear_layout, place
 from repro_torch.kernels.filtered_topk import filtered_topk
 from repro_torch.models.recsys import (TwoTower, TwoTowerConfig,
                                        init_two_tower, two_tower_loss)
@@ -72,6 +72,7 @@ def filtered_retrieval_step(mesh: Mesh, cfg: TwoTowerConfig, k: int = TOPK):
         return mesh.share(outs, [((b, kk), torch.int32),
                                  ((b, kk), torch.float32)], u.device)
 
+    step.mesh_explicit = True       # each rank passes its own blocks
     return step
 
 
@@ -166,6 +167,19 @@ class TwoTowerArch(RecsysArchBase):
         rep = {k: P(*([None] * (2 if k == "user_feats" else 1)))
                for k in bs}
         return (pspec, rep, P(axes, None), P(None, axes))
+
+    def place_inputs(self, shape: str, mesh: Mesh, model, batch, cand_embs,
+                     mask):
+        """The mesh step's arguments on this rank (``retrieval`` cells)
+        from whole ones: the model and the batch whole, as every serving
+        rank holds them; the candidates' row block and the mask's columns,
+        cut by :meth:`in_shardings`' specs; then the block's first row.
+        (The reference's specs also split the embedding tables, whose
+        looked-up rows its compiled step gathers.)"""
+        specs = self.in_shardings(self.config(), shape, mesh)[2:]
+        cand_l, mask_l = place((cand_embs, mask), specs, mesh)
+        return (model, batch, cand_l, mask_l,
+                mesh.block_start(cand_embs.shape[0], all_axes(mesh)))
 
 
 ARCH = TwoTowerArch()

@@ -373,12 +373,15 @@ def sharded_step(step: Callable, mesh: Mesh, in_specs: Sequence) -> Callable:
     or tensor object) comes back cut by that input's spec, written into
     the rank's block in place; any other output comes back whole, the same
     on every rank.  An output's cut is known only by that identity, so a
-    new tensor of the whole shape and dtype of a split input (an input
-    updated out of place would come back whole) raises ``ValueError``, as
-    does an updated input whose block changed shape.  Input modules get
-    their blocks back whatever the step returns.  On a one-rank mesh
-    nothing is gathered or copied: ``step`` runs on the very tensors it
-    was given."""
+    new tensor of the whole shape and dtype of a split input that a step
+    may update (an input updated out of place would come back whole)
+    raises ``ValueError``, as does an updated input whose block changed
+    shape.  A step may update a module's parameters and the tensors of
+    any argument but a dict of named inputs (a batch), which it only
+    reads: a serve step's (B,) scores may be shaped as its batch's split
+    (B,) ``logq``.  Input modules get their blocks back whatever the step
+    returns.  On a one-rank mesh nothing is gathered or copied: ``step``
+    runs on the very tensors it was given."""
     _check_mesh(mesh)
     in_specs = tuple(in_specs)
 
@@ -388,14 +391,17 @@ def sharded_step(step: Callable, mesh: Mesh, in_specs: Sequence) -> Callable:
                              "specs")
         blocks: Dict[int, Tuple[Tensor, Any]] = {}   # id(whole) -> block
         modules: Dict[int, list] = {}                # id(module) -> params
-        split = set()             # (shape, dtype) of the split inputs
+        split = set()     # (shape, dtype) of the split updatable inputs
 
-        def gather_leaf(t, spec):
+        def gather_leaf(t, spec, updatable=True):
             w = _whole(t, spec, mesh)
             blocks[id(w)] = (t, spec)
-            if t.shape != w.shape:
+            if updatable and t.shape != w.shape:
                 split.add((w.shape, w.dtype))
             return w
+
+        def gather_input(t, spec):
+            return gather_leaf(t, spec, updatable=False)
 
         def gather_module(module, specs):
             entries = modules[id(module)] = []
@@ -439,7 +445,8 @@ def sharded_step(step: Callable, mesh: Mesh, in_specs: Sequence) -> Callable:
                     b.copy_(_block(w, spec, mesh))
             return module
 
-        whole = [_walk(gather_leaf, a, s, gather_module)
+        whole = [_walk(gather_input if isinstance(a, Mapping)
+                       else gather_leaf, a, s, gather_module)
                  for a, s in zip(args, in_specs)]
         try:
             return _walk(cut_leaf, step(*whole), None, cut_module)

@@ -5,16 +5,30 @@ launches the CUDA kernel (``kernel.py``) on a CUDA table, or raises; there
 is no fallback from CUDA to the plain version.  The backward is the
 reference's ``_bag_bwd`` (``repro/kernels/embedding_bag/ops.py``), plain
 PyTorch on both devices, as it is plain jnp outside any Pallas kernel in
-the reference.
+the reference.  A ``meta`` table computes nothing: the forward gets a
+``meta`` output and reports the kernel's cost to the dry run's counter
+(:func:`repro_torch.kernels.cost.record_kernel`).
 """
 from __future__ import annotations
 
 import torch
 
+from ..cost import embedding_bag_cost, record_kernel
 from .kernel import embedding_bag_cuda
 from .ref import embedding_bag_ref
 
 Tensor = torch.Tensor
+
+
+def embedding_bag_meta(ids: Tensor, table: Tensor, mode: str) -> Tensor:
+    """The (B, D) output on ``meta``, and the kernel's cost with every id
+    valid and distinct (min(B·L, V) rows read)."""
+    (b, l), (v, d) = ids.shape, table.shape
+    record_kernel("embedding_bag", *embedding_bag_cost(
+        b, l, d, mode, valid=b * l, rows=min(b * l, v),
+        table_bytes=table.element_size(), id_bytes=ids.element_size()),
+        table.dtype)
+    return torch.empty((b, d), dtype=table.dtype, device="meta")
 
 
 def _bag_bwd(ids: Tensor, g: Tensor, table_shape, mode: str) -> Tensor:
@@ -35,6 +49,8 @@ class _EmbeddingBag(torch.autograd.Function):
     def forward(ctx, ids, table, mode):
         ctx.save_for_backward(ids)
         ctx.mode, ctx.table_shape = mode, tuple(table.shape)
+        if table.device.type == "meta":
+            return embedding_bag_meta(ids, table, mode)
         if table.device.type == "cpu":
             return embedding_bag_ref(ids, table, mode)
         return embedding_bag_cuda(ids, table, mode)

@@ -3,7 +3,9 @@
 A CPU tensor runs the plain PyTorch version (``ref.py``); a CUDA tensor
 launches the CUDA kernel (``kernel.py``) or raises.  There is no fallback
 from CUDA to the plain version.  Both are bit-identical to the argsort
-formulation (``ref.neighbor_expand_argsort``).
+formulation (``ref.neighbor_expand_argsort``).  A ``meta`` tensor computes
+nothing: it gets a ``meta`` output and reports the kernel's cost to the
+dry run's counter (:func:`repro_torch.kernels.cost.record_kernel`).
 """
 from __future__ import annotations
 
@@ -11,8 +13,21 @@ from typing import Optional
 
 import torch
 
+from ..cost import neighbor_expand_dense_cost, record_kernel
 from .kernel import neighbor_expand_cuda
 from .ref import neighbor_expand_ref
+
+
+def neighbor_expand_meta(row: torch.Tensor, pass_mask, visited, *,
+                         strategy: str, m: int, m_beta: int) -> torch.Tensor:
+    """The (B, m) int32 output on ``meta``, and the kernel's cost with
+    every lane scanning its whole candidate stream of distinct valid
+    ids."""
+    b, cap = row.shape
+    record_kernel("neighbor_expand", *neighbor_expand_dense_cost(
+        b, cap, m, strategy, m_beta, masked=pass_mask is not None,
+        visited=visited is not None), torch.int32)
+    return torch.empty((b, m), dtype=torch.int32, device="meta")
 
 
 def neighbor_expand(row: torch.Tensor, nbr_table: torch.Tensor,
@@ -27,6 +42,9 @@ def neighbor_expand(row: torch.Tensor, nbr_table: torch.Tensor,
     visited).  strategy in {'filter', 'compress', 'two_hop'} (Figure 4);
     ``m_beta`` is the compressed head width (compress only).
     """
+    if row.device.type == "meta":
+        return neighbor_expand_meta(row, pass_mask, visited,
+                                    strategy=strategy, m=m, m_beta=m_beta)
     if row.device.type == "cpu":
         return neighbor_expand_ref(row, nbr_table, pos, pass_mask, visited,
                                    strategy=strategy, m=m, m_beta=m_beta)

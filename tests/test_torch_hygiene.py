@@ -7,6 +7,9 @@
 * Entry points given the default device (``cuda``) raise on a machine
   without CUDA instead of running on the CPU; CPU tensors take the plain
   versions, and the CUDA launchers refuse CPU tensors before any build.
+* Every kernel router given ``meta`` tensors returns ``meta`` outputs of
+  its kernel's shapes and records the kernel's cost for the dry run,
+  without reaching the loader; the launchers refuse ``meta`` tensors.
 """
 import ast
 import dataclasses
@@ -34,11 +37,17 @@ from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.train import main as train_main
 from repro_torch.serve import EngineConfig, ServingEngine
 from repro_torch.kernels import loader
-from repro_torch.kernels.embedding_bag import embedding_bag_cuda
-from repro_torch.kernels.filtered_topk import filtered_topk_cuda
-from repro_torch.kernels.gather_distance import gather_distance_cuda
-from repro_torch.kernels.neighbor_expand import neighbor_expand_cuda
-from repro_torch.kernels.pna_aggregate import pna_aggregate_cuda
+from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                               embedding_bag_cuda)
+from repro_torch.kernels.filtered_topk import (filtered_topk,
+                                               filtered_topk_cuda)
+from repro_torch.kernels.gather_distance import (gather_distance,
+                                                 gather_distance_cuda)
+from repro_torch.kernels.neighbor_expand import (neighbor_expand,
+                                                 neighbor_expand_cuda)
+from repro_torch.kernels.pna_aggregate import (pna_aggregate,
+                                               pna_aggregate_cuda)
+from repro_torch.launch.op_cost import OpCounter
 from repro_torch.models.gnn import init_pna
 from repro_torch.models.recsys import init_two_tower
 from repro_torch.models.transformer import init_cache
@@ -192,3 +201,75 @@ def test_cuda_launchers_refuse_cpu_tensors():
         pna_aggregate_cuda(torch.zeros((2, 4, 4)), torch.zeros((2, 4, 3)))
     with pytest.raises(ValueError, match="cuda"):
         embedding_bag_cuda(ids, x)
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+_I32 = torch.int32
+# router -> (the router, its launcher, keyword arguments, meta inputs, the
+# outputs' (shape, dtype), the kernel's dense (flops, bytes) counted by
+# hand)
+META_ROUTERS = {
+    # ids (4, 8), q (4, 16), x (100, 16): 3 flops per (id, column); ids,
+    # output, queries and 32 distinct rows of 16 floats
+    "gather_distance": (
+        gather_distance, gather_distance_cuda, {},
+        lambda: (_meta((4, 8), _I32), _meta((4, 16)), _meta((100, 16))),
+        [((4, 8), torch.float32)], 3 * 4 * 8 * 16,
+        4 * (32 + 32 + 64 + 32 * 16)),
+    # q (2, 16), x (50, 16), k 5, l2: 2 d per pair + 2 d per row for the
+    # norms; mask bytes, queries, rows, (ids, dists)
+    "filtered_topk": (
+        filtered_topk, filtered_topk_cuda, dict(k=5),
+        lambda: (_meta((2, 16)), _meta((50, 16)),
+                 _meta((2, 50), torch.bool)),
+        [((2, 5), _I32), ((2, 5), torch.float32)],
+        2 * 16 * 2 * 50 + 2 * 16 * 50,
+        2 * 50 + 4 * (2 * 16 + 50 * 16) + 8 * 2 * 5),
+    # compress, cap 6, m_beta 2, m 4: a lane's stream is 2 + 4 x (1 + 6) =
+    # 30 ids and 4 pos lookups, a pass-mask and a visited byte per id
+    "neighbor_expand": (
+        neighbor_expand, neighbor_expand_cuda,
+        dict(strategy="compress", m=4, m_beta=2),
+        lambda: (_meta((3, 6), _I32), _meta((40, 6), _I32),
+                 _meta((40,), _I32), _meta((3, 40), torch.bool),
+                 _meta((3, 40), torch.bool)),
+        [((3, 4), _I32)], 0, 3 * (4 * (30 + 4) + 2 * 30) + 4 * 3 * 4),
+    # adj (2, 5, 5), feats (2, 5, 3): 7 ops per (pair, feature)
+    "pna_aggregate": (
+        pna_aggregate, pna_aggregate_cuda, {},
+        lambda: (_meta((2, 5, 5)), _meta((2, 5, 3))),
+        [((2, 5, 12), torch.float32)], 7 * 2 * 5 * 5 * 3,
+        4 * (50 + 30 + 2 * 5 * 12)),
+    # ids (6, 3), table (10, 4): min(18, 10) rows, the ids, the output
+    "embedding_bag": (
+        embedding_bag, embedding_bag_cuda, {},
+        lambda: (_meta((6, 3), _I32), _meta((10, 4))),
+        [((6, 4), torch.float32)], 6 * 3 * 4, 4 * (10 * 4 + 6 * 4 + 18)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(META_ROUTERS))
+def test_kernel_routers_on_meta_record_their_cost(name, monkeypatch):
+    """A router given ``meta`` inputs returns ``meta`` outputs of the
+    kernel's shapes and dtypes and reports the kernel's dense cost once
+    to the counter; it never reaches the loader and launches nothing.
+    The launcher itself refuses ``meta`` tensors."""
+    router, launcher, kw, inputs, outs, flops, nbytes = META_ROUTERS[name]
+
+    def no_library():
+        raise AssertionError("a meta tensor reached the kernel loader")
+    monkeypatch.setattr(loader, "library", no_library)
+    before = launcher.launches
+    with OpCounter() as c:
+        got = router(*inputs(), **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    assert [(tuple(t.shape), t.dtype) for t in got] == outs
+    assert all(t.device.type == "meta" for t in got)
+    assert c.kernels == {name: {"count": 1, "flops": float(flops),
+                                "bytes": float(nbytes)}}
+    assert launcher.launches == before
+    with pytest.raises(ValueError, match="cuda"):
+        launcher(*inputs(), **kw)

@@ -393,9 +393,10 @@ def _round_trip(mesh, smoke) -> dict:
 
 def _refusals(mesh) -> dict:
     """``sharded_step`` on a tensor and a module split over every axis:
-    whether a step that updates in place gives this rank its block, and
+    whether a step that updates in place gives this rank its block,
     whether one that returns new tensors of the split shape (an update
-    out of place, a copied module) raises."""
+    out of place, a copied module) raises, and whether a new tensor shaped
+    as a split input of a batch dict (read only) comes back whole."""
     import copy
     axes = tuple(mesh.axis_names)
     x = torch.arange(16.0).reshape(8, 2)
@@ -411,10 +412,14 @@ def _refusals(mesh) -> dict:
         return False
     got = sharded_step(lambda t: t.add_(1), mesh, xs)(
         *place((x.clone(),), xs, mesh))
+    bs = ({"x": xs[0]},)
+    scores = sharded_step(lambda b: b["x"] + 1, mesh, bs)(
+        *place(({"x": x.clone()},), bs, mesh))
     return dict(
         in_place=torch.equal(got, place(x + 1, xs[0], mesh)),
         out_of_place=raises(lambda t: t + 1, (x.clone(),), xs),
-        copied_module=raises(copy.deepcopy, (lin,), ls))
+        copied_module=raises(copy.deepcopy, (lin,), ls),
+        batch_read=torch.equal(scores, x + 1))
 
 
 def _mesh_rank(rank, world, shape, names):
@@ -448,11 +453,13 @@ def test_place_gather_round_trip(rank_results):
 def test_sharded_step_refuses_updates_out_of_place(rank_results):
     """An output's cut is known by identity only, so a new tensor (or a
     copied module's parameter) shaped as a split input raises rather
-    than come back whole; an update in place comes back cut."""
+    than come back whole; an update in place comes back cut.  A batch
+    dict is only read: a new tensor shaped as one of its split inputs
+    (a serve step's scores) comes back whole."""
     world, results = rank_results
     for r in results:
         assert r["refusals"] == dict(in_place=True, out_of_place=True,
-                                     copied_module=True)
+                                     copied_module=True, batch_read=True)
 
 
 @pytest.mark.parametrize("arch_id,shape,layout", STEP_CASES)
