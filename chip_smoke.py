@@ -14,9 +14,10 @@
                             # sharded HCPS serving engine (n = 2^20) and
                             # the distributed paths on a one-rank NCCL
                             # mesh (acorn serve_1m and serve_25m, the
-                            # SPMD engine), and last the five LM arches
+                            # SPMD engine), the five LM arches
                             # at full width (train_4k, prefill_32k,
-                            # decode_32k; gemma3's long_500k)
+                            # decode_32k; gemma3's long_500k), and last
+                            # the perf twin's timed variants
     python3 chip_smoke.py --baseline DIR   # also time the gather_distance.cu,
                             # neighbor_expand.cu, filtered_topk.cu and
                             # pna_aggregate.cu in DIR (an earlier version)
@@ -318,6 +319,23 @@ Phases, each printed on its own line:
            zero) within 1e-5 of a float64 softmax taken in chunks on
            the card, ms per call beside its bytes at 3.35 TB/s
            (``split_kv_check``).
+  perf     the timed half of the perf twin (``repro_torch.launch.perf``;
+           ``perf_phase``), after the process group is gone, launch
+           counters zeroed just before and read just after
+           (``perf_launches`` in the record): acorn ``serve_25m`` at rank
+           0's block of the 16 x 16 mesh (98,304 rows, B = 512, d = 512):
+           the baseline, the 8,192-row scan (ids equal, dists within
+           1e-3), the scan over a bf16 corpus (top-10 overlap >= 0.9) and
+           ``filtered_topk`` on the block, then the step's merge (its
+           kernel launched; ids equal but near ties, counted); DCN-v2
+           ``retrieval_cand`` at FULL (``retrieve_opt`` within 1e-5 of
+           ``retrieve``); smollm ``train_4k`` at ``PERF_SMOLLM`` (2
+           layers, B = 1) with fp32 and bf16 logits (losses finite, within
+           2e-2).  Each variant: one checked warm-up, the median of 5
+           CUDA-event-timed calls, peak memory, and its shape counted on
+           meta tensors (``flop_share`` asserted <= 1.05, ``byte_share``);
+           one ``[perf]`` line a variant.  The 16 x 16 counts run in the
+           twin's own command.
   roofline each timed step counted on meta tensors by
            ``repro_torch.launch.op_cost.OpCounter`` in a process of its own,
            started before the kernel build and waited for after it, before
@@ -353,8 +371,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM data-sheet peaks (dense), defined once in the port's roofline
-from repro_torch.launch.roofline import (HBM_BYTES_PER_S,  # noqa: E402
-                                         PEAK_BF16_PER_S, PEAK_FP32_PER_S)
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BYTES_PER_S, PEAK_BF16_PER_S, PEAK_FP32_PER_S,
+    ROOFLINE_FLOP_SHARE_MAX)
 
 N, D, CARD = 1_000_000, 128, 12
 M, GAMMA, M_BETA, K, EF = 32, 12, 64, 10, 64
@@ -5432,11 +5451,89 @@ def lm_phases(dev, reduced: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# perf: the timed half of repro_torch.launch.perf
+# ---------------------------------------------------------------------------
+
+# smollm train_4k (layers, batch) here: the twin's own command times the
+# LM_CUTS step (~4.7 s a call)
+PERF_SMOLLM = (2, 1)
+
+
+def perf_phase(dev, reduced: bool = False) -> dict:
+    """The ``perf`` phase: the timed variants of the perf twin
+    (``repro_torch.launch.perf``) on ``dev``, the launch counters zeroed
+    just before and read just after: acorn ``serve_25m`` at rank 0's block
+    of the 16 x 16 mesh (the baseline, the chunked scan, a bf16 corpus,
+    ``filtered_topk``), DCN-v2 ``retrieval_cand`` at FULL, smollm
+    ``train_4k`` at ``PERF_SMOLLM``.  The twin's gates raise: the chunked
+    scan's ids equal the baseline's (dists within 1e-3), the bf16
+    corpus's overlap >= 0.9, ``filtered_topk``'s ids equal except at near
+    ties, ``retrieve_opt`` within 1e-5 of ``retrieve``, finite losses and
+    bf16 logits' within 2e-2 of fp32's, every ``flop_share`` <= 1.05.  On
+    the card ``filtered_topk`` must have launched its kernel, and no other
+    kernel may launch.  One ``[perf]`` line a variant."""
+    from repro_torch.launch import perf
+    t0 = time.perf_counter()
+    counters = zero_launches()
+    dcn = perf.dcn_timed(dev, reduced=reduced)
+    lm = perf.smollm_timed(dev, *(() if reduced else PERF_SMOLLM),
+                           reduced=reduced)
+    out = {"acorn serve_25m": perf.acorn_timed(dev, reduced=reduced),
+           "dcn-v2 retrieval_cand": {name: dcn[opt] for name, _, opt
+                                     in perf.DCN_VARIANTS},
+           "smollm-360m train_4k": {"baseline, pure_dp": lm[True],
+                                    "pure_dp + bf16 logits": lm[False]}}
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if dev.type == "cuda" and launches["filtered_topk_cuda"] <= 0:
+        raise AssertionError("perf: filtered_topk did not launch its kernel")
+    if any(v for k, v in launches.items() if k != "filtered_topk_cuda"):
+        raise AssertionError(f"perf: another kernel launched: {launches}")
+    for cell, recs in out.items():
+        for variant, rec in recs.items():
+            log("perf", cell=repr(cell), variant=repr(variant),
+                ms=rec["ms"], peak_gb=rec["peak_gb"],
+                flop_share=rec["flop_share"], byte_share=rec["byte_share"],
+                calls=rec["calls"], shape=rec["shape"],
+                **rec.get("check", {}))
+    if dev.type == "cuda":   # the kernel alone at the block, not counted
+        out["filtered_topk_block"] = perf_topk_block(dev)
+    out["kernel_launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log("perf", seconds=f"{out['seconds']:.1f}", kernel_launches=launches)
+    return out
+
+
+def perf_topk_block(dev) -> dict:
+    """``filtered_topk`` at the perf phase's acorn block (the same inputs:
+    B = 512, n = 98,304, d = 512, k = 10, l2), measured as the kernels
+    phase measures it (cold L2; the plain version and the cdist yardstick
+    beside it), and the baseline step's matmul + mask + ``top_k`` timed
+    the same way as its library figure."""
+    import torch
+    from repro_torch.launch import perf
+    from repro_torch.configs.acorn import ACORN_SHAPES
+    spec = ACORN_SHAPES[perf.ACORN_SHAPE]
+    x, q, masks = perf.acorn_inputs(spec["n"] // perf.RANKS, spec["d"],
+                                    spec["batch"], dev)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    rec = measure_filtered_topk(q, x, masks, spec["k"], "l2", flush, None,
+                                "filtered_topk acorn block")
+    xn = (x * x).sum(dim=1)
+    neg = float("-inf")
+    rec["baseline_library_ms"] = time_ms(lambda: torch.topk(torch.where(
+        masks, 2.0 * (q @ x.T) - xn[None, :], neg), spec["k"]), ITERS // 5,
+        flush)
+    rec["baseline_library_calls"] = ("torch.topk(torch.where(mask, 2 q @ "
+                                     "x.T - |x|^2, -inf), k): 5 calls")
+    log("perf", kernel="filtered_topk", shape=repr(rec["shape"]),
+        baseline_library_ms=rec["baseline_library_ms"])
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # roofline: the timed steps counted on meta tensors
 # ---------------------------------------------------------------------------
 
-# a timed step may not beat its counted FLOPs at the card's peaks by more
-ROOFLINE_FLOP_SHARE_MAX = 1.05
 # the acorn variants the mesh phase times, (shape, optimized, chunk), but
 # serve_25m at MESH_CHUNK: its 3,072 scan blocks take 15 s to run on meta
 # tensors (the meta kernels are Python), half the counting's 30 s, and
@@ -5939,6 +6036,14 @@ def main(argv=None) -> int:
     dist.destroy_process_group()
     for rcd in records:   # the LM path runs none of the port's kernels
         rcd["lm_launches"] = lm["kernel_launches"][rcd["name"] + "_cuda"]
+
+    # ---- perf: the perf twin's timed variants (filtered_topk launches) ----
+    torch.cuda.empty_cache()
+    perf = perf_phase(dev)
+    for rcd in records:
+        rcd["perf_launches"] = perf["kernel_launches"][rcd["name"] + "_cuda"]
+        if rcd["name"] == "filtered_topk":
+            rcd["other_shapes"].append(perf["filtered_topk_block"])
 
     # ---- roofline: each timed step's counted terms beside its time ----
     for line in roofline_lines(counts, roofline_measured(acorn_ms, train,

@@ -71,7 +71,13 @@ class AcornServeArch:
         score matrix, masked, one top-k (the FAISS flat-scan pre-filter).
         ``optimized=True``: a scan over ``chunk``-row blocks with a running
         top-k: each block's own top-k first, then the ``[running, block]``
-        concatenation, so the big score tile is never touched twice."""
+        concatenation, so the big score tile is never touched twice.
+
+        A corpus of another dtype (bf16) is read as the reference reads
+        it: the baseline promotes the product to fp32 (jnp's fp32 x bf16
+        promotion) and sums the norms in the corpus dtype; the scan casts
+        the queries to the corpus dtype, upcasts each block's product to
+        fp32 and takes the norms of the block upcast to fp32."""
         if mesh is None:
             raise ValueError("the acorn serve step is mesh-explicit: pass "
                              "mesh= (e.g. launch.mesh.make_host_mesh())")
@@ -89,14 +95,17 @@ class AcornServeArch:
             return (torch.where(torch.isfinite(s2), ids2,
                                 torch.full_like(ids2, -1)), d2)
 
-        def scores(q, xb, mb):
-            xn = (xb * xb).sum(dim=1)
-            s = 2.0 * (q @ xb.T) - xn[None, :]              # rank-equal -d2
+        def scores(q, xb, xn, mb):
+            # rank-equal -d2; a bf16 product is doubled exactly and meets
+            # the fp32 norms in fp32
+            s = 2.0 * (q @ xb.T) - xn[None, :]
             return torch.where(mb, s, torch.full_like(s, float("-inf")))
 
         def local_base(x_l, q, m_l, base):
             qn = (q * q).sum(dim=1, keepdim=True)
-            top_s, top_i = top_k(scores(q, x_l, m_l), k)
+            xn = (x_l * x_l).sum(dim=1)
+            xq = x_l.to(torch.promote_types(q.dtype, x_l.dtype))
+            top_s, top_i = top_k(scores(q, xq, xn, m_l), k)
             return merge_global(qn, top_s, top_i, base)
 
         def local_opt(x_l, q, m_l, base):
@@ -104,13 +113,17 @@ class AcornServeArch:
             nc = max(n_l // chunk, 1)
             cs = n_l // nc
             qn = (q * q).sum(dim=1, keepdim=True)
+            qf = q.to(x_l.dtype)
             bs = torch.full((b, k), float("-inf"), device=q.device)
             bi = torch.full((b, k), -1, dtype=torch.int64, device=q.device)
             for i in range(nc):
                 rows = slice(i * cs, (i + 1) * cs)
+                xb = x_l[rows]
+                xf = xb.float()
                 # block-local top-k FIRST: the (B, 2k) merge never touches
                 # the big score tile again
-                ts_c, tp_c = top_k(scores(q, x_l[rows], m_l[:, rows]), k)
+                ts_c, tp_c = top_k(scores(qf, xb, (xf * xf).sum(dim=1),
+                                          m_l[:, rows]), k)
                 ms = torch.cat([bs, ts_c], dim=1)
                 mi = torch.cat([bi, tp_c + i * cs], dim=1)
                 bs, tp = top_k(ms, k)

@@ -112,12 +112,13 @@ def _meta(spec: TensorSpec) -> torch.Tensor:
     return torch.empty(spec.shape, dtype=spec.dtype, device="meta")
 
 
-def meta_inputs(arch, cfg, shape: str) -> tuple:
+def meta_inputs(arch, cfg, shape: str, reduced: bool = False) -> tuple:
     """The step's whole arguments on ``meta``: the model from
     ``arch.module(cfg)`` (never ``init``), AdamW state from
     :func:`init_adamw`, every other :class:`TensorSpec` of
-    ``abstract_inputs`` as an empty ``meta`` tensor."""
-    abstract = arch.abstract_inputs(cfg, shape)
+    ``abstract_inputs`` (at the REDUCED shapes with ``reduced``) as an
+    empty ``meta`` tensor."""
+    abstract = arch.abstract_inputs(cfg, shape, reduced=reduced)
     model = arch.module(cfg) if hasattr(arch, "module") else None
 
     def build(x):
@@ -165,6 +166,35 @@ def host_read_site(exc: BaseException) -> str:
     return site
 
 
+def rank_step(arch, cfg, shape: str, mesh, step, whole: tuple,
+              in_specs=None) -> tuple:
+    """(step, args, compute): how one rank of ``mesh`` runs ``step`` on
+    the whole arguments ``whole``.  A ``mesh_explicit`` step runs on the
+    rank's blocks from ``arch.place_inputs`` (``"sharded"``); any other
+    runs through :func:`sharded_step` on the blocks ``in_specs`` (default:
+    the arch's ``in_shardings``) cut (``"replicated"``).  The blocks of a
+    module are cut in place, so ``whole`` serves one call."""
+    if getattr(step, "mesh_explicit", False):
+        return step, arch.place_inputs(shape, mesh, *whole), "sharded"
+    if in_specs is None:
+        in_specs = arch.in_shardings(cfg, shape, mesh)
+    return (sharded_step(step, mesh, in_specs),
+            place(whole, in_specs, mesh), "replicated")
+
+
+def count_call(step, args) -> tuple:
+    """(counter, seconds): ``step(*args)`` run once under an
+    :class:`OpCounter` that holds its arguments and outputs."""
+    counter = OpCounter()
+    counter.add_arguments(args)
+    t0 = time.perf_counter()
+    with counter:
+        out = step(*args)
+    count_s = time.perf_counter() - t0
+    counter.add_outputs(out)
+    return counter, count_s
+
+
 def _write(rec: dict, path: str) -> None:
     with open(path, "w") as f:
         json.dump(rec, f, indent=1)
@@ -195,23 +225,12 @@ def run_cell(arch_id: str, shape: str, multi_pod: bool, out_dir: str,
     kw = {}
     if "mesh" in inspect.signature(arch.step_fn).parameters:
         kw["mesh"] = mesh
-    step = arch.step_fn(cfg, shape, **kw)
-    if getattr(step, "mesh_explicit", False):
-        args = arch.place_inputs(shape, mesh, *whole)
-        compute = "sharded"
-    else:
-        in_specs = arch.in_shardings(cfg, shape, mesh)
-        args = place(whole, in_specs, mesh)
-        step = sharded_step(step, mesh, in_specs)
-        compute = "replicated"
+    step, args, compute = rank_step(arch, cfg, shape, mesh,
+                                    arch.step_fn(cfg, shape, **kw), whole)
     del whole
 
-    counter = OpCounter()
-    counter.add_arguments(args)
-    t0 = time.perf_counter()
     try:
-        with counter:
-            out = step(*args)
+        counter, count_s = count_call(step, args)
     except Exception as e:  # noqa: BLE001 - sorted below
         if not is_host_read(e):
             raise
@@ -223,9 +242,6 @@ def run_cell(arch_id: str, shape: str, multi_pod: bool, out_dir: str,
         if verbose:
             print(f"[skip] {tag}: {reason}")
         return rec
-    count_s = time.perf_counter() - t0
-    counter.add_outputs(out)
-    del out
 
     roof = analyze(counter, model_flops=_model_flops(arch, cfg, shape))
     rec = dict(head, chips=chips, status="ok", compute=compute,

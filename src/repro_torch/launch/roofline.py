@@ -38,6 +38,10 @@ HBM_BYTES_PER_S = 3.35e12
 LINK_BYTES_PER_S = 50e9
 NVLINK_BYTES_PER_S = 450e9
 
+# a timed step may not beat its counted FLOPs at the card's peaks by more
+# (the counter overcounts, or a peak is wrong)
+ROOFLINE_FLOP_SHARE_MAX = 1.05
+
 # dtype class -> the peak its FLOPs are timed at
 PEAKS = {"bf16": PEAK_BF16_PER_S, "fp32": PEAK_FP32_PER_S,
          "other": PEAK_FP32_PER_S}

@@ -298,3 +298,133 @@ def test_steps_on_gloo_meshes(world, two_tower, tmp_path):
             np.testing.assert_array_equal(d, want_d, err_msg=key)
         else:
             assert_ids_match(ids, want_ids, d, want_d, x, q, expanded=True)
+
+
+# ---- a bf16 corpus, as the reference's perf variants pass it -------------
+
+def perf_inputs():
+    """The reference perf test's inputs (``tests/test_perf_variants.py``):
+    n 4,096, d 32, B 8, masks at 0.4, from ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    n, d, b = 4096, 32, 8
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    return x, q, rng.random((b, n)) < 0.4
+
+
+def bf16_steps(x, q, masks, optimized, chunk=256):
+    """(port, reference) (ids, dists) of the step over ``x`` cast to bf16,
+    each on a one-device mesh."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_arch as jax_get_arch
+    step = jax_get_arch("acorn").step_fn(
+        None, "serve_1m", mesh=jax.make_mesh((1, 1), ("data", "model")),
+        optimized=optimized, chunk=chunk)
+    ids, d = step(jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(q),
+                  jnp.asarray(masks))
+    mesh = make_host_mesh()
+    port = ARCH.step_fn(None, "serve_1m", mesh=mesh, optimized=optimized,
+                        chunk=chunk)
+    pi, pd = port(*ARCH.place_inputs(
+        "serve_1m", mesh, torch.as_tensor(x).to(torch.bfloat16),
+        torch.as_tensor(q), torch.as_tensor(masks)))
+    return (pi.numpy(), pd.numpy()), (np.asarray(ids), np.asarray(d))
+
+
+def overlap(a, b):
+    return np.mean([len(set(u) & set(v)) / a.shape[1] for u, v in zip(a, b)])
+
+
+def test_perf_inputs_fp32_optimized_matches_reference():
+    """The fp32 corpus of the same inputs: ids identical, dists within
+    1e-3 (the reference perf test's bounds)."""
+    x, q, masks = perf_inputs()
+    ids, d = port_step(make_host_mesh(), "serve_1m", x, q, masks, True, 256)
+    want_ids, want_d = ref_step("serve_1m", x, q, masks, True, 256)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_allclose(d, want_d, atol=1e-3, rtol=0)
+
+
+def test_bf16_corpus_optimized_against_fp32_and_reference():
+    """The chunked scan over a bf16 corpus runs (it raised before) and
+    ranks as the reference does.  Against the port's own fp32 ids the top
+    10 overlap >= 0.9, the reference test's bound.  Against the
+    reference's bf16 ids they overlap >= 0.99, and every differing slot is
+    a near tie at bf16's rounding of the product: the port rounds the
+    bf16 x bf16 product to bf16 before the fp32 upcast, the reference's
+    fused upcast may keep it, so two rows may swap where their float64
+    scores (of the bf16 values) differ by at most 2^-7 (|q.x_a| +
+    |q.x_b|)."""
+    x, q, masks = perf_inputs()
+    (ids, d), (want_ids, _) = bf16_steps(x, q, masks, optimized=True)
+    assert ids.dtype == np.int32 and d.dtype == np.float32
+    assert np.isfinite(d[ids >= 0]).all()
+    fp32_ids, _ = port_step(make_host_mesh(), "serve_1m", x, q, masks, True,
+                            256)
+    assert overlap(ids, fp32_ids) >= 0.9
+    assert overlap(ids, want_ids) >= 0.99
+    xb = torch.as_tensor(x).to(torch.bfloat16).double().numpy()
+    qb = torch.as_tensor(q).to(torch.bfloat16).double().numpy()
+    for qi, j in zip(*np.nonzero(ids != want_ids)):
+        a, b = ids[qi, j], want_ids[qi, j]
+        pa, pb = qb[qi] @ xb[a], qb[qi] @ xb[b]
+        sa, sb = 2 * pa - xb[a] @ xb[a], 2 * pb - xb[b] @ xb[b]
+        assert abs(sa - sb) <= 2.0 ** -7 * (abs(pa) + abs(pb)), (qi, j)
+
+
+def test_bf16_corpus_baseline_matches_reference():
+    """The unchunked step over a bf16 corpus: both packages compute the
+    product in fp32 (jnp promotes fp32 x bf16 to fp32) and sum the norms
+    in bf16, so the fp32 tolerances hold over the bf16 values: ids
+    identical except at near ties, dists within rtol 1e-5 / atol 1e-6 of
+    |q|^2 + |x|^2."""
+    x, q, masks = perf_inputs()
+    (ids, d), (want_ids, want_d) = bf16_steps(x, q, masks, optimized=False)
+    xb = torch.as_tensor(x).to(torch.bfloat16).float().numpy()
+    assert_ids_match(ids, want_ids, d, want_d, xb, q, expanded=True)
+
+
+def pre_repair_step(x, q, masks, optimized, chunk, k=10):
+    """The one-device step's arithmetic as it was before the bf16 repair,
+    op for op: its fp32 outputs must not move by a bit."""
+    from repro_torch.distributed.collectives import top_k
+
+    def scores(q, xb, mb):
+        xn = (xb * xb).sum(dim=1)
+        s = 2.0 * (q @ xb.T) - xn[None, :]
+        return torch.where(mb, s, torch.full_like(s, float("-inf")))
+
+    b, n = q.shape[0], x.shape[0]
+    qn = (q * q).sum(dim=1, keepdim=True)
+    if optimized:
+        nc = max(n // chunk, 1)
+        cs = n // nc
+        bs = torch.full((b, k), float("-inf"))
+        bi = torch.full((b, k), -1, dtype=torch.int64)
+        for i in range(nc):
+            rows = slice(i * cs, (i + 1) * cs)
+            ts_c, tp_c = top_k(scores(q, x[rows], masks[:, rows]), k)
+            ms = torch.cat([bs, ts_c], dim=1)
+            mi = torch.cat([bi, tp_c + i * cs], dim=1)
+            bs, tp = top_k(ms, k)
+            bi = torch.gather(mi, 1, tp)
+    else:
+        bs, bi = top_k(scores(q, x, masks), k)
+    s2, pos = top_k(bs, k)
+    ids = torch.gather(bi.to(torch.int32), 1, pos)
+    return torch.where(torch.isfinite(s2), ids, torch.full_like(ids, -1)), \
+        qn - s2
+
+
+@pytest.mark.parametrize("optimized,chunk", [(False, 8192), (True, 256),
+                                             (True, 1000)])
+def test_fp32_outputs_unchanged_by_the_bf16_repair(optimized, chunk):
+    x, q, masks = (torch.as_tensor(a) for a in perf_inputs())
+    mesh = make_host_mesh()
+    ids, d = ARCH.step_fn(None, "serve_1m", mesh=mesh, optimized=optimized,
+                          chunk=chunk)(*ARCH.place_inputs("serve_1m", mesh,
+                                                          x, q, masks))
+    want_ids, want_d = pre_repair_step(x, q, masks, optimized, chunk)
+    assert torch.equal(ids, want_ids)
+    assert torch.equal(d.view(torch.int32), want_d.view(torch.int32))

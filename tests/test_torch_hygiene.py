@@ -33,6 +33,7 @@ from repro_torch.convert import (adamw_state_from_arrays,
                                  two_tower_params_from_arrays)
 from repro_torch.core import (AcornConfig, HybridIndex, sentinel_result)
 from repro_torch.data import make_hcps_dataset, make_lcps_dataset
+from repro_torch.launch.perf import main as perf_main
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.train import main as train_main
 from repro_torch.serve import EngineConfig, ServingEngine
@@ -105,6 +106,7 @@ ENTRY_POINTS = {
                                         "--shards", "1"]),
     "launch.train": lambda: train_main(["--arch", "two-tower-retrieval",
                                         "--steps", "2"]),
+    "launch.perf": lambda: perf_main(["--reduced", "--cell", "1"]),
     "adamw_state_from_arrays": lambda: adamw_state_from_arrays(
         0, {"enc": np.zeros((8, 16)), "dec": np.zeros((16, 2)),
             "layers": []}, {"enc": np.zeros((8, 16)),

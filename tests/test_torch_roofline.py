@@ -91,6 +91,26 @@ def test_h100_constants_defined_once():
         assert not names.search(text), path
 
 
+def test_perf_twin_reads_the_card_constants():
+    """``launch/perf.py`` and ``chip_smoke.py`` read the peaks and the
+    ``flop_share`` limit from ``launch/roofline.py``: neither assigns
+    them, and the perf twin spells no H100 value and none of the
+    reference perf.py's TPU constants (its HBM rate, bf16 peak and
+    modeled terms)."""
+    assert roofline.ROOFLINE_FLOP_SHARE_MAX == 1.05
+    perf = ROOT / "src" / "repro_torch" / "launch" / "perf.py"
+    text = perf.read_text()
+    assert "from repro_torch.launch.roofline import" in text
+    assert not re.search(r"\b(989e12|67e12|3\.35e12|50e9|450e9)\b", text)
+    for tpu in ("819e9", "197e12", "2.62e-04", "2.62e-4", "2.23e-04",
+                "2.23e-4", "1.1e7"):
+        assert tpu not in text, tpu
+    for path in (perf, ROOT / "chip_smoke.py"):
+        assert not re.search(r"^\s*(ROOFLINE_FLOP_SHARE_MAX|PEAK_\w+|"
+                             r"HBM_BYTES_PER_S)\s*=", path.read_text(),
+                             re.M), path
+
+
 @pytest.fixture(scope="module")
 def smoke():
     spec = importlib.util.spec_from_file_location(
