@@ -51,8 +51,19 @@ Phases, each printed on its own line:
            ``TOPK_EDGE_CASES`` (padding, partial tiles, k = n, ties, k at
            its cap of 256, up to 16,602 tile lists, every tile holding the
            same scores, all rows passing at n = 2^20, fewer passing rows
-           than k); then timed with CUDA events (with ``--baseline``, in
-           turns with the earlier ``filtered_topk.cu``).
+           than k), each also on bf16 and fp16 copies of its corpus (q
+           fp32, and q in the corpus dtype); then timed with CUDA events
+           (with ``--baseline``, in turns with the earlier
+           ``filtered_topk.cu``), and on bf16 and fp16 copies of the index's
+           vectors beside the 16-bit matmul + mask + ``torch.topk``; k past
+           256 (the select-and-sort path) at ``TOPK_LARGE_K_CASES`` (k = n
+           with padding, 40,000 kept keys merged in global memory, integer
+           ties), k = 257, 1,024, 4,096 at q (64, 128), x (131,072, 128)
+           and k = n = 5,000 timed beside one matmul + mask +
+           ``torch.topk``; neighbor_expand's global-set variant at
+           ``NE_WIDE_CASES`` (m = 8,192 and 16,384 at cap = 128, past its
+           227 KB shared-memory set) bit-identical, the two_hop cases
+           timed.
   serve    at least four 256-query requests through ``HybridIndex.search``
            with §5.2 routing (a forced request is added if a route got no
            query); launch counters are zeroed just before and read just
@@ -125,7 +136,11 @@ Phases, each printed on its own line:
            padding, sum and mean, within rtol / atol 1e-5; timed beside
            one ``F.embedding_bag`` call of the same result (``bag_library``:
            sum weighted by ``ids >= 0``, mean over the valid ids with
-           offsets); then the op at those shapes with the launch counters
+           offsets); the same on bf16 and fp16 copies of the table (and of
+           the edge cases' tables: the output in the table's dtype, within
+           one unit in its last place times the bag's sum of |rows|),
+           ``F.embedding_bag`` on the 16-bit table beside it; then the op
+           at those shapes (fp32) with the launch counters
            zeroed just before and read just after, and its gradient at
            (65,536, 4) against a CPU copy.  Then ``make_sharded_lookup``
            over that table on the one-rank mesh (``P("model", None)``,
@@ -325,9 +340,12 @@ Phases, each printed on its own line:
            (``perf_launches`` in the record): acorn ``serve_25m`` at rank
            0's block of the 16 x 16 mesh (98,304 rows, B = 512, d = 512):
            the baseline, the 8,192-row scan (ids equal, dists within
-           1e-3), the scan over a bf16 corpus (top-10 overlap >= 0.9) and
+           1e-3), the scan over a bf16 corpus (top-10 overlap >= 0.9),
            ``filtered_topk`` on the block, then the step's merge (its
-           kernel launched; ids equal but near ties, counted); DCN-v2
+           kernel launched; ids equal but near ties, counted), and
+           ``filtered_topk`` on a bf16 copy of the block (overlap >= 0.9;
+           the entry the reference models); then ``filtered_topk`` alone
+           at the block on fp32, bf16 and fp16 copies; DCN-v2
            ``retrieval_cand`` at FULL (``retrieve_opt`` within 1e-5 of
            ``retrieve``); smollm ``train_4k`` at ``PERF_SMOLLM`` (2
            layers, B = 1) with fp32 and bf16 logits (losses finite, within
@@ -410,6 +428,32 @@ TOPK_EDGE_CASES = [
     dict(b=2, n=1 << 20, d=32, k=100, few=37),    # fewer than k, spread
     dict(b=2, n=4 * 2048 + 1, d=16, k=50, p=0.3, last_row=True),
 ]
+
+# filtered_topk past the one-launch design's k <= 256 (the select-and-sort
+# path), the same as CARD_LARGE_K in tests/test_torch_filtered_topk.py (case
+# i drawn with seed i; "half" names a 16-bit corpus): k = 257, 1,024 and
+# 4,096 at q (64, 128), x (131,072, 128), density 0.5, and k = n on a
+# 5,000-row corpus with fewer passing rows (the first TOPK_LARGE_K_TIMED,
+# timed); more kept keys than a CTA sorts in shared memory (merged in global
+# memory), integer ties, scalar loads, a bf16 corpus
+TOPK_LARGE_K_CASES = [
+    dict(b=64, n=131_072, d=128, k=257),
+    dict(b=64, n=131_072, d=128, k=1024),
+    dict(b=64, n=131_072, d=128, k=4096),
+    dict(b=3, n=5000, d=16, k=5000, p=0.3),
+    dict(b=3, n=50_000, d=16, k=20_000, p=0.8),
+    dict(b=2, n=45_000, d=4, k=40_000, p=1.1, ints=True),
+    dict(b=2, n=64 * 2048, d=4, k=2048, p=1.1, ints=True, period=2048),
+    dict(b=2, n=20_000, d=13, k=500, p=0.3),
+    dict(b=2, n=2100, d=24, k=2000, half="bf16"),
+]
+TOPK_LARGE_K_TIMED = 4
+# the 16-bit corpora (and tables) the kernels read as stored: filtered_topk
+# at TOPK_EDGE_CASES, the LCPS shape (kernels phase) and the acorn block
+# (perf phase); embedding_bag over a copy of the two-tower user table; one
+# unit in the last place of each
+HALF_DTYPES = {"bf16": "bfloat16", "fp16": "float16"}
+HALF_ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 
 # two-tower retrieval_cand (repro_torch/configs/two_tower_retrieval.py FULL)
 N_CAND, CAND_CHUNK = 1_048_576, 65_536
@@ -523,6 +567,16 @@ NE_EDGE_CASES = [
     dict(kind="path", strategy="compress", cap=128, m=32, m_beta=64,
          p_pass=0.03),
 ]
+# m past neighbor_expand's shared-memory dedup set (> 227 KB from m = 7,681
+# at cap = 128): its global-set variant, the same as WIDE_CASES in
+# tests/test_torch_neighbor_expand.py (case i drawn with seed i by
+# expand_edge_inputs); the two two_hop cases (stream 16,512) are timed
+NE_WIDE_CASES = [
+    dict(strategy="two_hop", cap=128, m=8192, n=200_000),
+    dict(strategy="two_hop", cap=128, m=16_384, n=200_000),
+    dict(strategy="compress", cap=128, m=8192, m_beta=32, n=200_000),
+]
+NE_WIDE_TIMED = 2
 # gather_distance's edge cases, the same as CARD_CASES in
 # tests/test_torch_gather_distance.py (case i is drawn with seed i by
 # gather_edge_inputs): d = 13 (scalar loads), all ids -1, ids >= n
@@ -941,14 +995,28 @@ def check_expand(calls, what: str) -> int:
     return checked
 
 
-def expand_edge_calls(dev):
-    """NE_EDGE_CASES as (row, tbl, pos, pm, vis, kw) on ``dev``."""
+def expand_edge_calls(dev, cases=NE_EDGE_CASES):
+    """``cases`` (NE_EDGE_CASES by default) as (row, tbl, pos, pm, vis,
+    kw) on ``dev``."""
     import torch
-    for ci, case in enumerate(NE_EDGE_CASES):
+    for ci, case in enumerate(cases):
         yield (*(torch.from_numpy(a).to(dev)
                  for a in expand_edge_inputs(**case, seed=ci)),
                dict(strategy=case["strategy"], m=case["m"],
                     m_beta=case.get("m_beta", 0)))
+
+
+def check_expand_wide(dev, flush) -> list:
+    """neighbor_expand's global-set variant (NE_WIDE_CASES) bit for bit
+    against its plain version with and without the mask and the visited
+    set, the first NE_WIDE_TIMED timed by ``measure_expand`` (no baseline:
+    an earlier kernel may not take such m); returns their records."""
+    calls = list(expand_edge_calls(dev, NE_WIDE_CASES))
+    log("kernels", kernel="neighbor_expand",
+        wide_cases=check_expand(calls, "wide m"), bit_identical=True)
+    return [measure_expand(call[:5], call[5], flush, None,
+                           f"global set, m={call[5]['m']}")
+            for call in calls[:NE_WIDE_TIMED]]
 
 
 def check_gather_edges(dev) -> float:
@@ -972,8 +1040,9 @@ def check_gather_edges(dev) -> float:
 
 def filtered_topk_bound(q, x, mask, k: int, metric: str) -> dict:
     """What this call's data needs, each byte once: the mask (one byte per
-    query and row), the rows that pass some query's mask (d floats each;
-    a row no query passes need not be read), the queries and the (ids,
+    query and row), the rows that pass some query's mask (d elements
+    each, of the corpus's dtype; a row no query passes need not be read),
+    the queries and the (ids,
     dists) output; 2 d flops per passing (query, row) pair, plus 2 d per
     row read for |x|^2 under l2.  The dense figures (every row read and
     every pair scored) are returned beside it."""
@@ -981,12 +1050,13 @@ def filtered_topk_bound(q, x, mask, k: int, metric: str) -> dict:
     b, n = mask.shape
     d = x.shape[1]
     rows = int(mask.any(dim=0).sum())
+    sizes = dict(q_bytes=q.element_size(), x_bytes=x.element_size())
     flops, byts = filtered_topk_cost(b, n, d, k, metric, rows=rows,
-                                     pairs=int(mask.sum()))
+                                     pairs=int(mask.sum()), **sizes)
     need, by = bound(byts, flops)
     # the dense figures: filtered_topk's own cost on meta tensors
     flops, byts = filtered_topk_cost(b, n, d, k, metric, rows=n,
-                                     pairs=b * n)
+                                     pairs=b * n, **sizes)
     dense, dense_by = bound(byts, flops)
     return dict(bound_ms=need, bound_by=by, dense_bound_ms=dense,
                 dense_bound_by=dense_by, rows_needed=rows)
@@ -1079,43 +1149,111 @@ def topk_inputs(b, n, d, p=0.5, seed=0, dup=False, empty_rows=False,
     return q, x, mask
 
 
-def check_filtered_topk_edges(dev) -> int:
-    """The kernel against its plain version on the card at
-    TOPK_EDGE_CASES, both metrics; returns the near ties."""
+def topk_case(case, seed, dev) -> tuple:
+    """(q, x, mask, k) of an edge case on ``dev``; "half" makes x 16-bit."""
+    import torch
+    kw = dict(case)
+    k = kw.pop("k")
+    half = kw.pop("half", None)
+    q, x, mask = (torch.from_numpy(a).to(dev)
+                  for a in topk_inputs(**kw, seed=seed))
+    if half is not None:
+        x = x.to(getattr(torch, HALF_DTYPES[half]))
+    return q, x, mask, k
+
+
+def check_topk_cases(cases, dev, what: str, halves=(None,)) -> int:
+    """The kernel against its plain version on the card at ``cases``, both
+    metrics, with x in each dtype of ``halves`` (None: as drawn; a 16-bit
+    corpus also with q in its dtype); returns the near ties."""
     import torch
     from repro_torch.kernels.filtered_topk import (filtered_topk_cuda,
                                                    filtered_topk_ref)
-    from repro_torch.kernels.filtered_topk.kernel import KMAX
     ties = 0
-    for ci, case in enumerate(TOPK_EDGE_CASES):
-        kw = dict(case)
-        k = kw.pop("k")
-        q, x, mask = (torch.from_numpy(a).to(dev)
-                      for a in topk_inputs(**kw, seed=ci))
-        for metric in ("l2", "ip"):
-            got = filtered_topk_cuda(q, x, mask, k, metric)
-            want = filtered_topk_ref(q, x, mask, k, metric)
-            torch.cuda.synchronize()
-            ties += assert_topk_match(*got, *want, q, x, metric,
-                                      f"filtered_topk {case} {metric}")[1]
-    q, x, mask = (torch.from_numpy(a).to(dev) for a in topk_inputs(1, 300, 4))
-    try:
-        filtered_topk_cuda(q, x, mask, KMAX + 1, "ip")
-    except ValueError:
-        pass
-    else:
-        raise AssertionError(f"filtered_topk_cuda took k = {KMAX + 1} > "
-                             "its cap")
-    log("kernels", kernel="filtered_topk", edge_cases=len(TOPK_EDGE_CASES) * 2,
-        near_ties=ties, k_above_cap_raises=True)
+    for ci, case in enumerate(cases):
+        for half in halves:
+            q, x, mask, k = topk_case(
+                case if half is None else dict(case, half=half), ci, dev)
+            qs = (q,) if x.dtype == torch.float32 else (q, q.to(x.dtype))
+            for qq in qs:
+                for metric in ("l2", "ip"):
+                    got = filtered_topk_cuda(qq, x, mask, k, metric)
+                    want = filtered_topk_ref(qq, x, mask, k, metric)
+                    torch.cuda.synchronize()
+                    ties += assert_topk_match(
+                        *got, *want, qq.float(), x, metric,
+                        f"filtered_topk {what} {case} {x.dtype} q "
+                        f"{qq.dtype} {metric}")[1]
     return ties
 
 
+def check_filtered_topk_edges(dev) -> int:
+    """The kernel against its plain version on the card at
+    TOPK_EDGE_CASES, both metrics, with the drawn fp32 corpus and its bf16
+    and fp16 copies (q fp32, and q in the corpus dtype); returns the near
+    ties."""
+    ties = check_topk_cases(TOPK_EDGE_CASES, dev, "edge case")
+    ties_16 = check_topk_cases(TOPK_EDGE_CASES, dev, "edge case",
+                               tuple(HALF_DTYPES))
+    log("kernels", kernel="filtered_topk", edge_cases=len(TOPK_EDGE_CASES) * 2,
+        near_ties=ties, edge_cases_16bit=len(TOPK_EDGE_CASES) * 8,
+        near_ties_16bit=ties_16)
+    return ties + ties_16
+
+
+def check_filtered_topk_large_k(dev, flush) -> list:
+    """k past 256 (TOPK_LARGE_K_CASES, the select-and-sort path) against
+    the plain version on the card, both metrics; the first
+    TOPK_LARGE_K_TIMED timed at l2 by ``measure_filtered_topk`` beside one
+    matmul + mask + ``torch.topk``; returns their records."""
+    ties = check_topk_cases(TOPK_LARGE_K_CASES, dev, "k > 256")
+    log("kernels", kernel="filtered_topk",
+        large_k_cases=len(TOPK_LARGE_K_CASES) * 2, near_ties=ties)
+    recs = []
+    for ci, case in enumerate(TOPK_LARGE_K_CASES[:TOPK_LARGE_K_TIMED]):
+        q, x, mask, k = topk_case(case, ci, dev)
+        recs.append(measure_filtered_topk(
+            q, x, mask, k, "l2", flush, None, f"filtered_topk k={k}",
+            library=topk_addmm_library(q, x, mask, k)))
+    return recs
+
+
+def topk_addmm_library(q, x, mask, k: int) -> tuple:
+    """(one matmul + mask + ``torch.topk`` computing filtered_topk's l2
+    result in x's dtype, its description); its inputs (q in x's dtype,
+    -|x|^2) are built here, outside the call."""
+    import torch
+    qx = q.to(x.dtype)
+    neg_xn = -(x.float() ** 2).sum(dim=1).to(x.dtype)
+    neg = float("-inf")
+    return (lambda: torch.topk(torch.where(mask, torch.addmm(
+                neg_xn, qx, x.T, alpha=2.0), neg), k),
+            f"torch.topk(torch.where(mask, torch.addmm(-|x|^2, q, x.T, "
+            f"alpha=2), -inf), k) in {str(x.dtype).split('.')[-1]}: 3 calls")
+
+
+def measure_topk_16bit(q, x, mask, k: int, flush, what: str) -> list:
+    """filtered_topk at l2 on bf16 and fp16 copies of the corpus ``x`` (q
+    fp32), each measured by ``measure_filtered_topk`` beside the 16-bit
+    matmul + mask + ``torch.topk``; returns their records."""
+    import torch
+    recs = []
+    for name in HALF_DTYPES.values():
+        xh = x.to(getattr(torch, name))
+        recs.append(measure_filtered_topk(
+            q, xh, mask, k, "l2", flush, None, f"{what} {name}",
+            library=topk_addmm_library(q, xh, mask, k)))
+        del xh
+    return recs
+
+
 def measure_filtered_topk(q, x, mask, k: int, metric: str, flush, base,
-                          what: str) -> dict:
+                          what: str, library=None) -> dict:
     """Kernel (and the baseline kernel, if given) vs plain version on the
     card, then the kernel (in turns with the baseline), the plain version
-    and the library yardstick timed with a cold L2."""
+    and the library yardstick (``library``: a (call, description) pair;
+    by default the fp32 matmul or cdist + mask + ``torch.topk``) timed with
+    a cold L2."""
     import torch
     from repro_torch.kernels.filtered_topk import (filtered_topk_cuda,
                                                    filtered_topk_ref)
@@ -1127,7 +1265,9 @@ def measure_filtered_topk(q, x, mask, k: int, metric: str, flush, base,
         assert_topk_match(*base[2](q, x, mask, k, metric), *want, q, x,
                           metric, what + " (baseline)")
     neg = float("-inf")
-    if metric == "ip":
+    if library is not None:
+        library, calls = library
+    elif metric == "ip":
         library = lambda: torch.topk(torch.where(mask, q @ x.T, neg), k)  # noqa: E731
         calls = "torch.topk(torch.where(mask, q @ x.T, -inf), k): 3 calls"
     else:
@@ -1135,9 +1275,12 @@ def measure_filtered_topk(q, x, mask, k: int, metric: str, flush, base,
             torch.where(mask, -torch.cdist(q, x), neg), k)
         calls = ("torch.topk(torch.where(mask, -torch.cdist(q, x), -inf), "
                  "k): 4 calls")
+    x_dtype = "" if x.dtype == torch.float32 else (
+        f" x_dtype={str(x.dtype).split('.')[-1]}")
     rec = dict(
         shape=f"q({q.shape[0]},{q.shape[1]}) x({x.shape[0]},{x.shape[1]}) "
-              f"k={k} {metric} mask_density={float(mask.float().mean()):.4f}",
+              f"k={k} {metric} mask_density={float(mask.float().mean()):.4f}"
+              + x_dtype,
         max_abs_err=err, near_ties=ties,
         **time_in_turns(lambda: filtered_topk_cuda(q, x, mask, k, metric),
                         None if base is None else
@@ -1684,16 +1827,42 @@ def assert_bag_close(got, want, what: str) -> float:
     return float((got - want).abs().max()) if got.numel() else 0.0
 
 
+def assert_bag_match(got, want, ids, table, mode: str, what: str) -> float:
+    """An fp32 table: ``assert_bag_close``.  A 16-bit table: the output in
+    its dtype, within one unit in its last place times the bag's sum of
+    |rows| (over the count for mean) of ``want`` (fp32 sums in another
+    order before the one rounding); returns the largest |err|."""
+    import torch
+    if table.dtype == torch.float32:
+        return assert_bag_close(got, want, what)
+    if got.dtype != table.dtype:
+        raise AssertionError(f"{what}: output {got.dtype}, table "
+                             f"{table.dtype}")
+    valid = ids >= 0
+    rows = table[ids.clamp(0, table.shape[0] - 1).long()].float().abs()
+    scale = (rows * valid[..., None]).sum(dim=1)
+    if mode == "mean":
+        scale = scale / valid.sum(dim=1, keepdim=True).clamp_min(1)
+    gap = (got.float() - want.float()).abs()
+    ulp = HALF_ULP[str(table.dtype).split(".")[-1]]
+    if not bool((gap <= ulp * scale).all()):
+        raise AssertionError(f"{what}: more than one unit in the last place "
+                             "from the plain version")
+    return float(gap.max()) if gap.numel() else 0.0
+
+
 def embedding_bag_bound(ids, table, mode: str) -> tuple:
     """``embedding_bag_cost`` of this call's ids: each distinct row the
-    valid ids name (clipped) read once, one add per valid id and column,
-    plus a division per output under mean."""
+    valid ids name (clipped) read once and the output written once, at
+    the table's element size; one add per valid id and column, plus a
+    division per output under mean."""
     from repro_torch.kernels.cost import embedding_bag_cost
     v, d = table.shape
     valid = ids[ids >= 0]
     flops, byts = embedding_bag_cost(
         *ids.shape, d, mode, valid=int(valid.numel()),
-        rows=int(valid.clamp(max=v - 1).unique().numel()))
+        rows=int(valid.clamp(max=v - 1).unique().numel()),
+        table_bytes=table.element_size())
     return bound(byts, flops)
 
 
@@ -1707,11 +1876,12 @@ def bag_library(ids, table, mode: str) -> tuple:
     import torch.nn.functional as F
     v = table.shape[0]
     if mode == "sum":
-        safe, w = ids.clamp(0, v - 1).long(), (ids >= 0).float()
+        safe, w = ids.clamp(0, v - 1).long(), (ids >= 0).to(table.dtype)
         return (lambda: F.embedding_bag(safe, table, mode="sum",
                                         per_sample_weights=w),
                 "F.embedding_bag(ids.clamp(0, V-1), table, mode='sum', "
-                "per_sample_weights=(ids >= 0).float()): 1 call")
+                "per_sample_weights=(ids >= 0) in the table's dtype): 1 "
+                "call")
     valid = ids >= 0
     flat = ids[valid].clamp(max=v - 1).long()
     offsets = torch.zeros(ids.shape[0], dtype=torch.long, device=ids.device)
@@ -1725,17 +1895,21 @@ def measure_embedding_bag(ids, table, mode: str, flush) -> dict:
     """Kernel vs plain version on the card, then the kernel, the plain
     version and the library yardstick (one ``F.embedding_bag`` call,
     held to the plain version too) timed with a cold L2."""
+    import torch
     from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
                                                    embedding_bag_ref)
     b, l = ids.shape
     v, d = table.shape
     want = embedding_bag_ref(ids, table, mode)
-    err = assert_bag_close(embedding_bag_cuda(ids, table, mode), want,
-                           f"embedding_bag ({b}, {l}) {mode}")
+    err = assert_bag_match(embedding_bag_cuda(ids, table, mode), want, ids,
+                           table, mode, f"embedding_bag ({b}, {l}) {mode} "
+                           f"{table.dtype}")
     bound_ms, bound_by = embedding_bag_bound(ids, table, mode)
     rec = dict(
         shape=f"ids({b},{l}) table({v},{d}) {mode} "
-              f"valid={float((ids >= 0).float().mean()):.4f}",
+              f"valid={float((ids >= 0).float().mean()):.4f}"
+              + ("" if table.dtype == torch.float32 else
+                 f" dtype={str(table.dtype).split('.')[-1]}"),
         max_abs_err=err,
         ms=time_ms(lambda: embedding_bag_cuda(ids, table, mode), ITERS,
                    flush),
@@ -1745,12 +1919,44 @@ def measure_embedding_bag(ids, table, mode: str, flush) -> dict:
     library, calls = bag_library(ids, table, mode)
     rec.update(
         library_ms=time_ms(library, ITERS // 5, flush),
-        library_max_abs_err=assert_bag_close(library(), want,
-                                             "F.embedding_bag"),
+        library_max_abs_err=assert_bag_match(library(), want, ids, table,
+                                             mode, "F.embedding_bag"),
         library_calls=calls)
     log("kernels", kernel="embedding_bag", **{
         key: repr(v) if isinstance(v, str) else v for key, v in rec.items()})
     return rec
+
+
+def bag_16bit(dev, flush, table, inputs) -> list:
+    """embedding_bag on bf16 and fp16 tables: BAG_EDGE_CASES on 16-bit
+    copies of their tables, then a copy of ``table`` at ``inputs``, each
+    mode, held to the plain version by ``assert_bag_match``; the latter
+    measured by ``measure_embedding_bag`` beside one ``F.embedding_bag``
+    call on the 16-bit table.  Returns their records."""
+    import torch
+    from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
+                                                   embedding_bag_ref)
+    from repro_torch.kernels.embedding_bag.ref import MODES
+    recs, worst = [], 0.0
+    for name in HALF_DTYPES.values():
+        dt = getattr(torch, name)
+        for ci, case in enumerate(BAG_EDGE_CASES):
+            ids, tab, _ = (torch.from_numpy(a).to(dev)
+                           for a in bag_inputs(**case, seed=ci))
+            tab = tab.to(dt)
+            for mode in MODES:
+                worst = max(worst, assert_bag_match(
+                    embedding_bag_cuda(ids, tab, mode),
+                    embedding_bag_ref(ids, tab, mode), ids, tab, mode,
+                    f"embedding_bag {case} {mode} {name}"))
+        half = table.to(dt)
+        recs += [measure_embedding_bag(ids, half, mode, flush)
+                 for ids in inputs for mode in MODES]
+        del half
+    log("kernels", kernel="embedding_bag", dtypes=list(HALF_DTYPES.values()),
+        edge_cases_16bit=len(BAG_EDGE_CASES) * len(MODES) * 2,
+        max_abs_err_16bit=worst)
+    return recs
 
 
 def bag_phases(dev, flush, table) -> dict:
@@ -1794,6 +2000,7 @@ def bag_phases(dev, flush, table) -> dict:
         inputs.append(torch.as_tensor(ids.astype(np.int32), device=dev))
     recs = [measure_embedding_bag(ids, table, mode, flush)
             for ids in inputs for mode in MODES]
+    recs += bag_16bit(dev, flush, table, inputs)
 
     # the main path: the op, forward and gradient, counters zeroed just
     # before and read just after; the largest shape against a CPU copy
@@ -5464,9 +5671,10 @@ def perf_phase(dev, reduced: bool = False) -> dict:
     (``repro_torch.launch.perf``) on ``dev``, the launch counters zeroed
     just before and read just after: acorn ``serve_25m`` at rank 0's block
     of the 16 x 16 mesh (the baseline, the chunked scan, a bf16 corpus,
-    ``filtered_topk``), DCN-v2 ``retrieval_cand`` at FULL, smollm
+    ``filtered_topk`` on the fp32 and on a bf16 corpus), DCN-v2
+    ``retrieval_cand`` at FULL, smollm
     ``train_4k`` at ``PERF_SMOLLM``.  The twin's gates raise: the chunked
-    scan's ids equal the baseline's (dists within 1e-3), the bf16
+    scan's ids equal the baseline's (dists within 1e-3), a bf16
     corpus's overlap >= 0.9, ``filtered_topk``'s ids equal except at near
     ties, ``retrieve_opt`` within 1e-5 of ``retrieve``, finite losses and
     bf16 logits' within 2e-2 of fp32's, every ``flop_share`` <= 1.05.  On
@@ -5503,12 +5711,13 @@ def perf_phase(dev, reduced: bool = False) -> dict:
     return out
 
 
-def perf_topk_block(dev) -> dict:
+def perf_topk_block(dev) -> list:
     """``filtered_topk`` at the perf phase's acorn block (the same inputs:
     B = 512, n = 98,304, d = 512, k = 10, l2), measured as the kernels
     phase measures it (cold L2; the plain version and the cdist yardstick
     beside it), and the baseline step's matmul + mask + ``top_k`` timed
-    the same way as its library figure."""
+    the same way as its library figure; then on bf16 and fp16 copies of
+    the block (``measure_topk_16bit``).  Returns the three records."""
     import torch
     from repro_torch.launch import perf
     from repro_torch.configs.acorn import ACORN_SHAPES
@@ -5527,7 +5736,8 @@ def perf_topk_block(dev) -> dict:
                                      "x.T - |x|^2, -inf), k): 5 calls")
     log("perf", kernel="filtered_topk", shape=repr(rec["shape"]),
         baseline_library_ms=rec["baseline_library_ms"])
-    return rec
+    return [rec] + measure_topk_16bit(q, x, masks, spec["k"], flush,
+                                      "filtered_topk acorn block")
 
 
 # ---------------------------------------------------------------------------
@@ -5839,11 +6049,15 @@ def main(argv=None) -> int:
         name="neighbor_expand", route="cuda",
         source="src/repro_torch/csrc/neighbor_expand.cu",
         replaces="src/repro/kernels/neighbor_expand/kernel.py:157",
-        launch_floor_ms=floor_ms, **ne))
+        launch_floor_ms=floor_ms, other_shapes=check_expand_wide(dev, flush),
+        **ne))
     del vis
     topk_lcps = measure_filtered_topk(q, index.x, pm, TOPK_K, "l2", flush,
                                       base, "filtered_topk LCPS")
+    topk_more = measure_topk_16bit(q, index.x, pm, TOPK_K, flush,
+                                   "filtered_topk LCPS")
     check_filtered_topk_edges(dev)
+    topk_more += check_filtered_topk_large_k(dev, flush)
 
     # ---- serve: the main path, counters zeroed just before ----
     requests = [SearchRequest(xq=wl.xq[i * B:(i + 1) * B],
@@ -5964,7 +6178,7 @@ def main(argv=None) -> int:
 
     rec, model = retrieve_phases(dev, flush, args.profile, base)
     rec["kernel_ms"] = rec["ms"]
-    rec["other_shapes"] = [topk_lcps]
+    rec["other_shapes"] = [topk_lcps] + topk_more
     records.append(rec)
     # at (512, 4) the launch floor, not the bytes bound, is the least time
     records.append(dict(bag_phases(dev, flush, model.user_emb),
@@ -6043,7 +6257,7 @@ def main(argv=None) -> int:
     for rcd in records:
         rcd["perf_launches"] = perf["kernel_launches"][rcd["name"] + "_cuda"]
         if rcd["name"] == "filtered_topk":
-            rcd["other_shapes"].append(perf["filtered_topk_block"])
+            rcd["other_shapes"] += perf["filtered_topk_block"]
 
     # ---- roofline: each timed step's counted terms beside its time ----
     for line in roofline_lines(counts, roofline_measured(acorn_ms, train,

@@ -81,14 +81,50 @@
 // Buffers: `state` holds 2 64-bit words per query (T, arrival count) that
 // must be zero before the first call and are zero again after each call;
 // `workspace` (repro_filtered_topk_workspace words, no initial value) holds
-// each tile's list of up to k keys.  k is capped at kMaxK = 256.
+// each tile's list of up to k keys.  This one-launch design takes k up to
+// kMaxK = 256.
+//
+// Element types.  x is fp32, bf16 or fp16, and so is q.  A 16-bit row is
+// read as it is stored (half the bytes; 16-byte loads of 8 elements when
+// d % 8 == 0 and x is 16 B aligned, else one element a lane) and widened
+// to fp32 in registers; q is widened once, into shared memory.  Everything
+// after the loads is the fp32 arithmetic: a bf16 x bf16 or fp16 x fp16
+// product is exact in fp32, as the TPU kernel's dot_general with
+// preferred_element_type=f32 computes it.  An fp32 corpus keeps its own
+// float4 (or scalar) loads and order of operations.
+//
+// k above kMaxK (any k <= n): a second path of three steps, per chunk of
+// queries sized so that the chunk's keys fit kDenseKeys words of the
+// workspace:
+//   a. `score_keys_kernel`: the tiles' steps 1-2 as above, but each
+//      (query, tile) CTA writes the key of every row of its tile to the
+//      query's row of keys in the workspace (0 for a masked row), so a
+//      query's keys are n words in row order;
+//   b. `select_sort_kernel`, one CTA of 1024 threads per query: a radix
+//      select over those n keys in global memory (8-bit digits from the
+//      top, a shared histogram a pass, stopping at the first digit whose
+//      bin holds exactly the keys still wanted) gives a threshold that
+//      exactly min(k, passing rows) keys reach; they are compacted (warp
+//      slots) into shared memory and sorted there by a bitonic network
+//      when they fit kSortKeys (128 KB); past that, into global memory,
+//      sorted there in runs of kSortKeys by the same network, and merged
+//      in passes (each key's place in the merged run is its place in its
+//      own run plus its rank in the partner run, by binary search: keys
+//      are distinct);
+//   c. the same CTA decodes the k slots, padding past the passing rows
+//      with id -1 and score -inf, as the one-launch design does.
+// No library sort or select runs on either path.
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxK = 256;           // largest k this kernel takes
+constexpr int kMaxK = 256;           // largest k of the one-launch design
+constexpr int kSelThreads = 1024;    // select_sort_kernel's CTA
+constexpr int kSortKeys = 16384;     // keys sorted in shared memory (128 KB)
+constexpr long long kDenseKeys = 1LL << 25;   // workspace keys a chunk (256 MB)
 constexpr int kTile = 2048;          // corpus rows per CTA
 constexpr int kThreads = 256;
 constexpr int kPerThread = kTile / kThreads;   // mask bytes a thread loads
@@ -101,6 +137,55 @@ constexpr uint32_t kNegInfOrd = 0x007FFFFFu;   // ordered(-inf)
 constexpr int kSmemLimit = 232448;   // opt-in shared memory of one H100 block
 
 typedef unsigned long long Key;
+
+// The element types of x and q: how a stored element becomes an fp32
+// value.  kVec elements make one 16-byte load.
+struct F32 {
+  using T = float;
+  static constexpr int kVec = 4;
+  __device__ static float at(const T* p, long long i) { return __ldg(p + i); }
+};
+struct BF16 {
+  using T = unsigned short;
+  static constexpr int kVec = 8;
+  __device__ static float bits(uint32_t h) {
+    return __uint_as_float(h << 16);
+  }
+  __device__ static float at(const T* p, long long i) {
+    return bits(__ldg(p + i));
+  }
+  // the two elements of a 32-bit word, the lower address first
+  __device__ static float lo(uint32_t w) { return __uint_as_float(w << 16); }
+  __device__ static float hi(uint32_t w) {
+    return __uint_as_float(w & 0xFFFF0000u);
+  }
+};
+struct F16 {
+  using T = unsigned short;
+  static constexpr int kVec = 8;
+  __device__ static float bits(uint32_t h) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(h)));
+  }
+  __device__ static float at(const T* p, long long i) {
+    return bits(__ldg(p + i));
+  }
+  __device__ static float lo(uint32_t w) { return bits(w & 0xFFFFu); }
+  __device__ static float hi(uint32_t w) { return bits(w >> 16); }
+};
+
+enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+// Element i of q, stored as `q_type`, as an fp32 value.
+__device__ __forceinline__ float q_at(const void* q, int q_type,
+                                      long long i) {
+  if (q_type == kBF16) {
+    return BF16::at(static_cast<const unsigned short*>(q), i);
+  }
+  if (q_type == kF16) {
+    return F16::at(static_cast<const unsigned short*>(q), i);
+  }
+  return static_cast<const float*>(q)[i];
+}
 
 __device__ __forceinline__ uint32_t ordered(float f) {
   const uint32_t u = (f == 0.f) ? 0u : __float_as_uint(f);
@@ -491,27 +576,44 @@ __device__ __noinline__ void finish(int hc, const float* qs, int d,
   }
 }
 
-template <bool kIp, bool kVec4>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-filtered_topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                     const unsigned char* __restrict__ mask,
-                     Key* __restrict__ state, Key* __restrict__ lists,
-                     int* __restrict__ ids,
-                     float* __restrict__ dists, int n, int d, int nlists,
-                     int k) {
-  extern __shared__ float4 q_smem[];
-  float* qs = reinterpret_cast<float*>(q_smem);
+// The 8 elements of each row's 16-byte load `a` (a 16-bit E) against the
+// 8 fp32 values of q at q8, added to the rows' q.x (and |x|^2 under l2).
+template <class E, bool kIp>
+__device__ __forceinline__ void dot8(const uint4 (&a)[kRows],
+                                     const bool (&on)[kRows],
+                                     const float4* q8, float (&qx)[kRows],
+                                     float (&xn)[kRows]) {
+  const float4 qa = q8[0], qb = q8[1];
+  const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+  for (int u = 0; u < kRows; ++u) {
+    if (on[u]) {
+      const uint32_t w[4] = {a[u].x, a[u].y, a[u].z, a[u].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float f0 = E::lo(w[j]), f1 = E::hi(w[j]);
+        qx[u] += f0 * qv[2 * j] + f1 * qv[2 * j + 1];
+        if (!kIp) xn[u] += f0 * f0 + f1 * f1;
+      }
+    }
+  }
+}
 
-  const int nq = static_cast<int>(gridDim.x / nlists);
-  const int b = static_cast<int>(blockIdx.x % nq);
-  const int tile = static_cast<int>(blockIdx.x / nq);
-  const long long base = static_cast<long long>(tile) * kTile;
-  const int valid = static_cast<int>(min(static_cast<long long>(kTile),
-                                         static_cast<long long>(n) - base));
+// Steps 1 and 2 of the CTA of query b and the tile of rows [base, base +
+// valid): q staged in qs as fp32, the tile's passing rows compacted into
+// sh.rows and scored, their keys in sh.keys[0, cnt); returns cnt.  With
+// kDense the keys go instead to dense[row - base] for every row of the
+// tile, 0 for a row the mask fails.  Its first barrier publishes what the
+// caller wrote to sh before the call.
+template <class E, bool kIp, bool kVec, bool kDense>
+__device__ __forceinline__ int score_tile(
+    const void* __restrict__ q, int q_type,
+    const typename E::T* __restrict__ x,
+    const unsigned char* __restrict__ mask, float* qs, int b, int n, int d,
+    long long base, int valid, Key* __restrict__ dense) {
+  using T = typename E::T;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  Key* thr_g = state + 2 * b;
-  Key* arrive_g = thr_g + 1;
 
   // 1. mask bytes in flight while q is staged; then compact passing rows
   const unsigned char* mrow = mask + static_cast<long long>(b) * n + base;
@@ -521,15 +623,9 @@ filtered_topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
     const int i = j * kThreads + threadIdx.x;
     mb[j] = i < valid ? mrow[i] : 0;
   }
-  if (threadIdx.x == 0) {
-    sh.count = 0;
-    sh.ge = 0;
-    sh.kept = 0;
-  }
-  for (int i = threadIdx.x; i < kBins; i += kThreads) sh.hist[0][i] = 0;
-  int hc = 0;   // the zeroed radix-select histogram
+  if (threadIdx.x == 0) sh.count = 0;
   for (int i = threadIdx.x; i < d; i += kThreads) {
-    qs[i] = q[static_cast<long long>(b) * d + i];
+    qs[i] = q_at(q, q_type, static_cast<long long>(b) * d + i);
   }
   __syncthreads();
 #pragma unroll
@@ -542,6 +638,8 @@ filtered_topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
     if (pass) {
       sh.rows[slot + __popc(ball & ((1u << lane) - 1u))] =
           static_cast<unsigned short>(j * kThreads + threadIdx.x);
+    } else if (kDense && j * kThreads + threadIdx.x < valid) {
+      dense[j * kThreads + threadIdx.x] = 0ull;
     }
   }
   __syncthreads();
@@ -550,7 +648,7 @@ filtered_topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
   // 2. score the passing rows, kRows per warp in flight
   for (int i = warp * kRows; i < cnt; i += kWarps * kRows) {
     bool on[kRows];
-    const float* xr[kRows];
+    const T* xr[kRows];
     float qx[kRows], xn[kRows];
 #pragma unroll
     for (int u = 0; u < kRows; ++u) {
@@ -559,7 +657,7 @@ filtered_topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
       qx[u] = 0.f;
       xn[u] = 0.f;
     }
-    if (kVec4) {
+    if constexpr (kVec && E::kVec == 4) {   // fp32: float4 loads
       const float4* q4 = reinterpret_cast<const float4*>(qs);
       const int d4 = d >> 2;
       for (int c = lane; c < d4; c += 64) {
@@ -595,13 +693,31 @@ filtered_topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
           }
         }
       }
+    } else if constexpr (kVec) {   // 16-bit: 8 elements a 16-byte load
+      const float4* q4 = reinterpret_cast<const float4*>(qs);
+      const int d8 = d >> 3;
+      for (int c = lane; c < d8; c += 64) {
+        const bool two = c + 32 < d8;
+        uint4 a0[kRows], a1[kRows];
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) {
+          if (on[u]) {
+            a0[u] = __ldg(reinterpret_cast<const uint4*>(xr[u]) + c);
+            if (two) {
+              a1[u] = __ldg(reinterpret_cast<const uint4*>(xr[u]) + c + 32);
+            }
+          }
+        }
+        dot8<E, kIp>(a0, on, q4 + 2 * c, qx, xn);
+        if (two) dot8<E, kIp>(a1, on, q4 + 2 * (c + 32), qx, xn);
+      }
     } else {
       for (int c = lane; c < d; c += 32) {
         const float qv = qs[c];
 #pragma unroll
         for (int u = 0; u < kRows; ++u) {
           if (on[u]) {
-            const float a = __ldg(xr[u] + c);
+            const float a = E::at(xr[u], c);
             qx[u] += a * qv;
             if (!kIp) xn[u] += a * a;
           }
@@ -617,10 +733,50 @@ filtered_topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
       }
       if (lane == u && on[u]) {
         const float s = kIp ? qx[u] : 2.f * qx[u] - xn[u];
-        sh.keys[i + u] = make_key(s, base + sh.rows[i + u]);
+        const Key key = make_key(s, base + sh.rows[i + u]);
+        if (kDense) {
+          dense[sh.rows[i + u]] = key;
+        } else {
+          sh.keys[i + u] = key;
+        }
       }
     }
   }
+  return cnt;
+}
+
+template <class E, bool kIp, bool kVec>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+filtered_topk_kernel(const void* __restrict__ q, int q_type,
+                     const typename E::T* __restrict__ x,
+                     const unsigned char* __restrict__ mask,
+                     Key* __restrict__ state, Key* __restrict__ lists,
+                     int* __restrict__ ids,
+                     float* __restrict__ dists, int n, int d, int nlists,
+                     int k) {
+  extern __shared__ float4 q_smem[];
+  float* qs = reinterpret_cast<float*>(q_smem);
+
+  const int nq = static_cast<int>(gridDim.x / nlists);
+  const int b = static_cast<int>(blockIdx.x % nq);
+  const int tile = static_cast<int>(blockIdx.x / nq);
+  const long long base = static_cast<long long>(tile) * kTile;
+  const int valid = static_cast<int>(min(static_cast<long long>(kTile),
+                                         static_cast<long long>(n) - base));
+  const int lane = threadIdx.x & 31;
+  Key* thr_g = state + 2 * b;
+  Key* arrive_g = thr_g + 1;
+
+  // 1-2. the tile's passing rows scored into sh.keys
+  if (threadIdx.x == 0) {
+    sh.ge = 0;
+    sh.kept = 0;
+  }
+  for (int i = threadIdx.x; i < kBins; i += kThreads) sh.hist[0][i] = 0;
+  int hc = 0;   // the zeroed radix-select histogram
+  const int cnt = score_tile<E, kIp, kVec, false>(q, q_type, x, mask, qs, b,
+                                                  n, d, base, valid,
+                                                  nullptr);
   if (threadIdx.x == 0) sh.thr = *reinterpret_cast<volatile Key*>(thr_g);
   __syncthreads();
 
@@ -698,75 +854,350 @@ filtered_topk_kernel(const float* __restrict__ q, const float* __restrict__ x,
 
 int tiles_of(int n) { return (n + kTile - 1) / kTile; }
 
-template <bool kIp, bool kVec4>
-cudaError_t launch(const float* q, const float* x, const unsigned char* mask,
-                   Key* state, Key* lists, int* ids, float* dists, int b,
-                   int n, int d, int k, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// k > kMaxK: dense keys, a per-query radix select, a hand-written sort
+// ---------------------------------------------------------------------------
+
+// Steps 1-2 of (query b0 + blockIdx.x % nq, tile blockIdx.x / nq), the
+// tile's keys written to that query's row of `keys` (n words, row order).
+template <class E, bool kIp, bool kVec>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+score_keys_kernel(const void* __restrict__ q, int q_type,
+                  const typename E::T* __restrict__ x,
+                  const unsigned char* __restrict__ mask,
+                  Key* __restrict__ keys, int b0, int n, int d, int nlists) {
+  extern __shared__ float4 q_smem[];
+  const int nq = static_cast<int>(gridDim.x / nlists);
+  const int qi = static_cast<int>(blockIdx.x % nq);
+  const int tile = static_cast<int>(blockIdx.x / nq);
+  const long long base = static_cast<long long>(tile) * kTile;
+  const int valid = static_cast<int>(min(static_cast<long long>(kTile),
+                                         static_cast<long long>(n) - base));
+  score_tile<E, kIp, kVec, true>(q, q_type, x, mask,
+                                 reinterpret_cast<float*>(q_smem), b0 + qi,
+                                 n, d, base, valid,
+                                 keys + static_cast<long long>(qi) * n + base);
+}
+
+struct SelShared {
+  int hist[kBins];
+  int bin, above, bin_count, total, kept;
+  float qn;
+};
+
+// select_sort_kernel's shared memory (static; the sort buffer, dynamic)
+__shared__ SelShared ss;
+
+// Warp 0: the bin of ss.hist, counted from the top, that holds the
+// need-th largest key (ss.bin, ss.above the keys in higher bins,
+// ss.bin_count), and the keys counted in all bins (ss.total).  No bin is
+// chosen when ss.total < need.
+__device__ void pick_bin(int need) {
+  const int lane = threadIdx.x & 31;
+  int v[8], s = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    v[j] = ss.hist[kBins - 1 - 8 * lane - j];
+    s += v[j];
+  }
+  int incl = s;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += t;
+  }
+  if (lane == 31) ss.total = incl;
+  int acc = incl - s;
+  if (acc < need && need <= incl) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (acc < need && acc + v[j] >= need) {
+        ss.bin = kBins - 1 - 8 * lane - j;
+        ss.above = acc;
+        ss.bin_count = v[j];
+      }
+      acc += v[j];
+    }
+  }
+}
+
+// Sort a[0, p) descending, p a power of two, by a bitonic network.
+// Block-wide; ends with a barrier.
+__device__ void bitonic_desc(Key* a, int p) {
+  for (int size = 2; size <= p; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < p / 2; i += kSelThreads) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const Key u = a[lo], v = a[hi];
+        if ((u < v) == ((lo & size) == 0)) {
+          a[lo] = v;
+          a[hi] = u;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+__host__ __device__ int next_pow2(int v) {
+  int p = 1;
+  while (p < v) p <<= 1;
+  return p;
+}
+
+// One CTA per query b0 + blockIdx.x: the exact top k of the query's n
+// dense keys (0 = masked), decoded into ids and dists.  runs: 2 k words a
+// query, used only when more than kSortKeys keys are kept.
+template <bool kIp>
+__global__ void __launch_bounds__(kSelThreads)
+select_sort_kernel(const Key* __restrict__ keys, const void* __restrict__ q,
+                   int q_type, Key* __restrict__ runs, int* __restrict__ ids,
+                   float* __restrict__ dists, int b0, int n, int d, int k) {
+  extern __shared__ Key sbuf[];
+  const int qi = blockIdx.x;
+  const int b = b0 + qi;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const Key* kr = keys + static_cast<long long>(qi) * n;
+  if (!kIp && warp == 1) {   // |q|^2, as finish computes it
+    float acc = 0.f;
+    for (int i = lane; i < d; i += 32) {
+      const float v = q_at(q, q_type, static_cast<long long>(b) * d + i);
+      acc += v * v;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    }
+    if (lane == 0) ss.qn = acc;
+  }
+  for (int i = threadIdx.x; i < kBins; i += kSelThreads) ss.hist[i] = 0;
+  if (threadIdx.x == 0) ss.kept = 0;
+  __syncthreads();
+
+  // the threshold thr that exactly m = min(k, passing rows) keys reach:
+  // 8-bit digits from the top, the bits decided so far in `prefix`
+  Key prefix = 0ull, fixed = 0ull, thr = 1ull;
+  int need = k, m = k;
+  for (int shift = 56;; shift -= 8) {
+    for (int i = threadIdx.x; i < n; i += kSelThreads) {
+      const Key key = __ldg(kr + i);
+      if (key != 0ull && (key & fixed) == prefix) {
+        const int bin = static_cast<int>(key >> shift) & (kBins - 1);
+        const unsigned peers = __match_any_sync(__activemask(), bin);
+        if (lane == __ffs(peers) - 1) atomicAdd(&ss.hist[bin], __popc(peers));
+      }
+    }
+    __syncthreads();
+    if (warp == 0) pick_bin(need);
+    __syncthreads();
+    const int bin = ss.bin, above = ss.above, bin_count = ss.bin_count;
+    const int total = ss.total;
+    __syncthreads();
+    for (int i = threadIdx.x; i < kBins; i += kSelThreads) ss.hist[i] = 0;
+    if (shift == 56 && total <= k) {   // every passing row is kept
+      m = total;
+      break;
+    }
+    prefix |= static_cast<Key>(bin) << shift;
+    fixed |= static_cast<Key>(kBins - 1) << shift;
+    need -= above;
+    // every key of this digit is wanted: the digit's least key is thr
+    // (keys are distinct, so at shift 0 the bin holds one key: need = 1)
+    if (bin_count == need || shift == 0) {
+      thr = prefix > 0ull ? prefix : 1ull;
+      break;
+    }
+    __syncthreads();
+  }
+
+  // the m kept keys, compacted: into shared memory when they fit
+  const bool in_smem = m <= kSortKeys;
+  Key* buf = in_smem ? sbuf : runs + static_cast<long long>(qi) * 2 * k;
+  for (int i = threadIdx.x; i < n; i += kSelThreads) {
+    const Key key = __ldg(kr + i);
+    if (key >= thr) buf[warp_slot(&ss.kept)] = key;
+  }
+  __syncthreads();
+  if (in_smem) {
+    const int p = next_pow2(max(m, 1));
+    for (int i = m + threadIdx.x; i < p; i += kSelThreads) sbuf[i] = 0ull;
+    __syncthreads();
+    bitonic_desc(sbuf, p);
+  } else {
+    // runs of kSortKeys sorted in shared memory, then merged in passes
+    for (int r0 = 0; r0 < m; r0 += kSortKeys) {
+      const int len = min(kSortKeys, m - r0);
+      const int p = next_pow2(len);
+      for (int i = threadIdx.x; i < p; i += kSelThreads) {
+        sbuf[i] = i < len ? buf[r0 + i] : 0ull;
+      }
+      __syncthreads();
+      bitonic_desc(sbuf, p);
+      for (int i = threadIdx.x; i < len; i += kSelThreads) {
+        buf[r0 + i] = sbuf[i];
+      }
+      __syncthreads();
+    }
+    Key* src = buf;
+    Key* dst = buf + k;
+    for (int len = kSortKeys; len < m; len <<= 1) {
+      for (int i = threadIdx.x; i < m; i += kSelThreads) {
+        const Key key = src[i];
+        const int r = i / len;
+        const int ps = (r ^ 1) * len;
+        int lo = ps, hi = min(ps + len, m);   // first key of the partner
+        while (lo < hi) {                     // run below key
+          const int mid = (lo + hi) >> 1;
+          if (src[mid] > key) {
+            lo = mid + 1;
+          } else {
+            hi = mid;
+          }
+        }
+        const int rank = ps < m ? lo - ps : 0;
+        dst[(r & ~1) * len + (i - r * len) + rank] = key;
+      }
+      __syncthreads();
+      Key* t = src;
+      src = dst;
+      dst = t;
+    }
+    buf = src;
+  }
+  const long long o = static_cast<long long>(b) * k;
+  const float qn = ss.qn;
+  for (int r = threadIdx.x; r < k; r += kSelThreads) {
+    put<kIp>(ids, dists, o + r, r < m ? buf[r] : 0ull, qn);
+  }
+}
+
+// Queries a chunk of the k > kMaxK path: its dense keys fit kDenseKeys.
+int big_chunk(int b, int n) {
+  const long long fit = kDenseKeys / (n > 1 ? n : 1);
+  return static_cast<int>(fit < 1 ? 1 : fit < b ? fit : b);
+}
+
+template <class E, bool kIp, bool kVec>
+cudaError_t launch(const void* q, int q_type, const void* x,
+                   const unsigned char* mask, Key* state, Key* ws, int* ids,
+                   float* dists, int b, int n, int d, int k,
+                   cudaStream_t stream) {
+  using T = typename E::T;
   const int nlists = tiles_of(n);
   const int smem = 4 * ((d + 3) & ~3);
   if (smem + static_cast<int>(sizeof(Shared)) > kSmemLimit) {
     return cudaErrorInvalidValue;
   }
+  const T* xt = static_cast<const T*>(x);
+  if (k <= kMaxK) {
+    cudaError_t err = cudaFuncSetAttribute(
+        filtered_topk_kernel<E, kIp, kVec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    filtered_topk_kernel<E, kIp, kVec>
+        <<<static_cast<unsigned>(b) * nlists, kThreads, smem, stream>>>(
+            q, q_type, xt, mask, state, ws, ids, dists, n, d, nlists, k);
+    return cudaGetLastError();
+  }
+  const int sort_keys = k < kSortKeys ? next_pow2(k) : kSortKeys;
+  const int sort_bytes = static_cast<int>(sizeof(Key)) * sort_keys;
   cudaError_t err = cudaFuncSetAttribute(
-      filtered_topk_kernel<kIp, kVec4>,
+      score_keys_kernel<E, kIp, kVec>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  filtered_topk_kernel<kIp, kVec4>
-      <<<static_cast<unsigned>(b) * nlists, kThreads, smem, stream>>>(
-          q, x, mask, state, lists, ids, dists, n, d, nlists, k);
-  return cudaGetLastError();
+  err = cudaFuncSetAttribute(select_sort_kernel<kIp>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             sort_bytes);
+  if (err != cudaSuccess) return err;
+  const int qc = big_chunk(b, n);
+  Key* runs = ws + static_cast<long long>(qc) * n;
+  for (int b0 = 0; b0 < b; b0 += qc) {
+    const int nq = qc < b - b0 ? qc : b - b0;
+    score_keys_kernel<E, kIp, kVec>
+        <<<static_cast<unsigned>(nq) * nlists, kThreads, smem, stream>>>(
+            q, q_type, xt, mask, ws, b0, n, d, nlists);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    select_sort_kernel<kIp><<<nq, kSelThreads, sort_bytes, stream>>>(
+        ws, q, q_type, runs, ids, dists, b0, n, d, k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The launch of element type E: its metric, and 16-byte loads when d is a
+// multiple of E::kVec and x is 16 B aligned.
+template <class E>
+cudaError_t dispatch(const void* q, int q_type, const void* x,
+                     const unsigned char* mask, Key* state, Key* ws,
+                     int* ids, float* dists, int b, int n, int d, int k,
+                     bool ip, cudaStream_t s) {
+  const bool vec = (d % E::kVec) == 0 &&
+                   (reinterpret_cast<unsigned long long>(x) % 16) == 0;
+  if (ip) {
+    return vec ? launch<E, true, true>(q, q_type, x, mask, state, ws, ids,
+                                       dists, b, n, d, k, s)
+               : launch<E, true, false>(q, q_type, x, mask, state, ws, ids,
+                                        dists, b, n, d, k, s);
+  }
+  return vec ? launch<E, false, true>(q, q_type, x, mask, state, ws, ids,
+                                      dists, b, n, d, k, s)
+             : launch<E, false, false>(q, q_type, x, mask, state, ws, ids,
+                                       dists, b, n, d, k, s);
 }
 
 }  // namespace
 
-// Scratch the call needs, in 64-bit words, with no initial value: the tile
-// lists, (b, tiles, k) keys.  This covers the worst case, where every list
-// is full (every tile holds k keys >= T, as when all tiles hold the same
-// scores).
+// Scratch the call needs, in 64-bit words, with no initial value.  k <=
+// 256: the tile lists, (b, tiles, k) keys, which covers the worst case,
+// where every list is full (every tile holds k keys >= T, as when all
+// tiles hold the same scores).  k > 256: one chunk's dense keys, (chunk,
+// n), and past kSortKeys kept keys two runs of k a query of the chunk.
 extern "C" long long repro_filtered_topk_workspace(int b, int n, int k) {
   if (b <= 0 || n <= 0 || k <= 0) return 0;
-  return static_cast<long long>(b) * tiles_of(n) * k;
+  if (k <= kMaxK) return static_cast<long long>(b) * tiles_of(n) * k;
+  const long long qc = big_chunk(b, n);
+  return qc * n + (k > kSortKeys ? 2 * qc * k : 0);
 }
 
-// C entry point.  q (b, d) f32, x (n, d) f32, mask (b, n) bool (1 byte),
-// ids (b, k) int32 and dists (b, k) f32 outputs; state: 2 b 64-bit words,
-// zero before the call and zero again after it (the caller keeps one
-// zeroed buffer per stream); workspace of repro_filtered_topk_workspace(b,
-// n, k) 64-bit words; all contiguous on the current device;
-// 1 <= k <= min(n, 256); metric_ip 0 = l2, 1 = ip.  One kernel launch.
-// Returns its cudaError_t (0 = launched).
+// C entry point.  q (b, d) and x (n, d) of q_type and x_type (0 = fp32,
+// 1 = bf16, 2 = fp16), mask (b, n) bool (1 byte), ids (b, k) int32 and
+// dists (b, k) f32 outputs; state: 2 b 64-bit words, zero before the call
+// and zero again after it (the caller keeps one zeroed buffer per stream;
+// read only for k <= 256); workspace of repro_filtered_topk_workspace(b,
+// n, k) 64-bit words; all contiguous on the current device; 0 <= k <= n;
+// metric_ip 0 = l2, 1 = ip.  One kernel launch for k <= 256, two a chunk
+// of queries above.  Returns the first cudaError_t (0 = launched).
 extern "C" int repro_filtered_topk(const void* q, const void* x,
                                    const void* mask, void* ids, void* dists,
                                    void* state, void* workspace, int b, int n,
-                                   int d, int k, int metric_ip,
-                                   void* stream) {
+                                   int d, int k, int metric_ip, int q_type,
+                                   int x_type, void* stream) {
   if (b == 0 || k == 0) return static_cast<int>(cudaGetLastError());
-  if (k < 0 || k > kMaxK || k > n || d < 1 || b < 0) {
+  if (k < 0 || k > n || d < 1 || b < 0 || q_type < kF32 || q_type > kF16 ||
+      x_type < kF32 || x_type > kF16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (static_cast<long long>(b) * tiles_of(n) > 0x7FFFFFFFLL) {
+  if (k <= kMaxK && static_cast<long long>(b) * tiles_of(n) > 0x7FFFFFFFLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
-  auto qf = static_cast<const float*>(q);
-  auto xf = static_cast<const float*>(x);
   auto mk = static_cast<const unsigned char*>(mask);
   auto st = static_cast<Key*>(state);
   auto ws = static_cast<Key*>(workspace);
   auto id = static_cast<int*>(ids);
   auto di = static_cast<float*>(dists);
-  const bool vec4 =
-      (d % 4) == 0 && (reinterpret_cast<unsigned long long>(x) % 16) == 0;
+  const bool ip = metric_ip != 0;
   cudaError_t err;
-  if (metric_ip) {
-    err = vec4 ? launch<true, true>(qf, xf, mk, st, ws, id, di, b, n, d, k, s)
-               : launch<true, false>(qf, xf, mk, st, ws, id, di, b, n, d, k,
-                                     s);
+  if (x_type == kBF16) {
+    err = dispatch<BF16>(q, q_type, x, mk, st, ws, id, di, b, n, d, k, ip, s);
+  } else if (x_type == kF16) {
+    err = dispatch<F16>(q, q_type, x, mk, st, ws, id, di, b, n, d, k, ip, s);
   } else {
-    err = vec4 ? launch<false, true>(qf, xf, mk, st, ws, id, di, b, n, d, k,
-                                     s)
-               : launch<false, false>(qf, xf, mk, st, ws, id, di, b, n, d, k,
-                                      s);
+    err = dispatch<F32>(q, q_type, x, mk, st, ws, id, di, b, n, d, k, ip, s);
   }
   return static_cast<int>(err);
 }

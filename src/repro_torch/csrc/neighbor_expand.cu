@@ -66,6 +66,15 @@
 // Two barriers a round (one under 'filter').  Above 48 KB of shared memory
 // (m > 1,536) the entry point opts in to the larger carve-out.  Launched on
 // the caller's stream; allocates nothing.
+//
+// Past the carve-out (the set of 2^bits 8-byte slots outgrows 227 KB at
+// m > 7,680) a second variant of the same kernel keeps each lane's set in
+// a global-memory workspace the caller allocates (2^bits words a lane, no
+// initial value): the same hash, probe order and slot words, inserted by
+// the same atomics (now at L2), each slot read back past L1 (__ldcg).  The
+// lane's CTA clears its own set at its start, as the shared-memory variant
+// clears its set; there is no separate clearing pass.  The search (m = 16
+// or 32) never takes this variant.
 #include <cuda_runtime.h>
 
 namespace {
@@ -78,6 +87,7 @@ constexpr int kRound = kThreads * kPer;  // widest round: 512 positions
 constexpr int kCountInts = 2 * kPer * kWarps;
 constexpr unsigned long long kEmpty = ~0ull;
 constexpr int kDefaultSmem = 48 * 1024;  // above it a launch must opt in
+constexpr int kSmemLimit = 232448;       // opt-in shared memory of one H100 block
 
 enum Strategy { kFilter = 0, kCompress = 1, kTwoHop = 2 };
 
@@ -176,17 +186,24 @@ __device__ __forceinline__ void fetch(const Stream& st, int start, int tid,
   }
 }
 
+// kGlobalSet: the lane's hash set is set_ws + lane * 2^bits (global
+// memory) instead of the front of the dynamic shared memory.
+template <bool kGlobalSet>
 __global__ void __launch_bounds__(kThreads)
 neighbor_expand_kernel(const int* __restrict__ row,
                        const int* __restrict__ tbl,
                        const int* __restrict__ pos,
                        const unsigned char* __restrict__ pass_mask,
                        const unsigned char* __restrict__ visited,
-                       int* __restrict__ out, int strategy, int m, int m_beta,
-                       int n, int n_l, int cap, int bits) {
+                       int* __restrict__ out,
+                       unsigned long long* __restrict__ set_ws, int strategy,
+                       int m, int m_beta, int n, int n_l, int cap, int bits) {
   extern __shared__ unsigned long long smem[];
-  unsigned long long* s_set = smem;                          // (2^bits)
-  int* s_cnt = reinterpret_cast<int*>(smem + (1 << bits));   // (kCountInts)
+  unsigned long long* s_set =                                // (2^bits)
+      kGlobalSet ? set_ws + (static_cast<long long>(blockIdx.x) << bits)
+                 : smem;
+  int* s_cnt = reinterpret_cast<int*>(kGlobalSet ? smem
+                                                 : smem + (1 << bits));
   int* s_row = s_cnt + kCountInts;                           // (cap)
   int* s_exp_rows = s_row + cap;   // (cap) level row of each expanded id
 
@@ -273,7 +290,9 @@ neighbor_expand_kernel(const int* __restrict__ row,
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
         if (ok[k]) {
-          ok[k] = static_cast<unsigned>(s_set[slot[k]]) ==
+          const unsigned long long w =
+              kGlobalSet ? __ldcg(s_set + slot[k]) : s_set[slot[k]];
+          ok[k] = static_cast<unsigned>(w) ==
                   static_cast<unsigned>(base + k * kThreads + tid);
         }
       }
@@ -329,42 +348,84 @@ neighbor_expand_kernel(const int* __restrict__ row,
   for (int i = min(count, m) + tid; i < m; i += kThreads) o[i] = -1;
 }
 
+template <bool kGlobalSet>
+cudaError_t launch(const int* row, const int* tbl, const int* pos,
+                   const unsigned char* pass_mask,
+                   const unsigned char* visited, int* out,
+                   unsigned long long* set_ws, int b, int cap, int n,
+                   int n_l, int m, int m_beta, int strategy, int smem,
+                   cudaStream_t stream) {
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        neighbor_expand_kernel<kGlobalSet>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  neighbor_expand_kernel<kGlobalSet><<<b, kThreads, smem, stream>>>(
+      row, tbl, pos, pass_mask, visited, out, set_ws, strategy, m, m_beta, n,
+      n_l, cap, hash_bits(m));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Dynamic shared memory the kernel needs for a (cap, m) launch, in bytes.
+// Dynamic shared memory the shared-set variant needs for a (cap, m)
+// launch, in bytes.
 extern "C" int repro_neighbor_expand_smem_bytes(int cap, int m) {
   return static_cast<int>((1LL << hash_bits(m)) * sizeof(unsigned long long) +
                           (kCountInts + 2LL * cap) * sizeof(int));
 }
 
+// 64-bit words of global workspace a lane's hash set takes for a (cap, m)
+// launch: 0 when the shared-set variant fits the opt-in limit, else 2^bits
+// (that variant is launched).
+extern "C" long long repro_neighbor_expand_set_words(int cap, int m) {
+  if (static_cast<long long>((1LL << hash_bits(m)) *
+                             sizeof(unsigned long long)) +
+          (kCountInts + 2LL * cap) * static_cast<long long>(sizeof(int)) <=
+      kSmemLimit) {
+    return 0;
+  }
+  return 1LL << hash_bits(m);
+}
+
 // C entry point.  row (b, cap) int32; tbl (n_l, cap) int32; pos (n,) int32;
-// pass_mask, visited (b, n) bool or null; out (b, m) int32.  All contiguous
-// on the current device.  strategy 0 = filter, 1 = compress, 2 = two_hop;
-// b, m, cap >= 1; 0 <= m_beta <= cap; the stream (cap + cap^2 at most) must
-// fit in 31 bits and the shared memory in the device's opt-in limit.  Every
-// slot of out is written (-1 where nothing packs).  Returns
-// cudaGetLastError() after the launch.
+// pass_mask, visited (b, n) bool or null; out (b, m) int32; set_ws: b x
+// repro_neighbor_expand_set_words(cap, m) 64-bit words (no initial value),
+// or null when that is 0.  All contiguous on the current device.  strategy
+// 0 = filter, 1 = compress, 2 = two_hop; b, m, cap >= 1; 0 <= m_beta <= cap;
+// the stream (cap + cap^2 at most) must fit in 31 bits.  Every slot of out
+// is written (-1 where nothing packs).  Returns cudaGetLastError() after the
+// launch.
 extern "C" int repro_neighbor_expand(const void* row, const void* tbl,
                                      const void* pos, const void* pass_mask,
-                                     const void* visited, void* out, int b,
-                                     int cap, int n, int n_l, int m,
-                                     int m_beta, int strategy, void* stream) {
+                                     const void* visited, void* out,
+                                     void* set_ws, int b, int cap, int n,
+                                     int n_l, int m, int m_beta, int strategy,
+                                     void* stream) {
   if (static_cast<long long>(cap) * (cap + 1) + cap >= (1LL << 31) - kRound) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int smem = repro_neighbor_expand_smem_bytes(cap, m);
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        neighbor_expand_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const bool global_set = repro_neighbor_expand_set_words(cap, m) > 0;
+  if (global_set && set_ws == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  neighbor_expand_kernel<<<b, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(row), static_cast<const int*>(tbl),
-      static_cast<const int*>(pos),
-      static_cast<const unsigned char*>(pass_mask),
-      static_cast<const unsigned char*>(visited), static_cast<int*>(out),
-      strategy, m, m_beta, n, n_l, cap, hash_bits(m));
-  return static_cast<int>(cudaGetLastError());
+  auto r = static_cast<const int*>(row);
+  auto t = static_cast<const int*>(tbl);
+  auto p = static_cast<const int*>(pos);
+  auto pm = static_cast<const unsigned char*>(pass_mask);
+  auto vis = static_cast<const unsigned char*>(visited);
+  auto o = static_cast<int*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (global_set) {
+    const int smem = static_cast<int>((kCountInts + 2LL * cap) * sizeof(int));
+    return static_cast<int>(launch<true>(
+        r, t, p, pm, vis, o, static_cast<unsigned long long*>(set_ws), b, cap,
+        n, n_l, m, m_beta, strategy, smem, s));
+  }
+  return static_cast<int>(launch<false>(r, t, p, pm, vis, o, nullptr, b, cap,
+                                        n, n_l, m, m_beta, strategy,
+                                        repro_neighbor_expand_smem_bytes(cap,
+                                                                         m),
+                                        s));
 }

@@ -37,14 +37,16 @@ def gather_distance_cost(b: int, m: int, n: int, d: int, *, valid: int,
 
 
 def filtered_topk_cost(b: int, n: int, d: int, k: int, metric: str, *,
-                       rows: int, pairs: int) -> Tuple[float, float]:
+                       rows: int, pairs: int, q_bytes: int = 4,
+                       x_bytes: int = 4) -> Tuple[float, float]:
     """q (b, d), x (n, d), mask (b, n): the mask (a byte per query and
-    row), the queries, the ``rows`` rows some query passes and the (ids,
-    dists) output, each once; 2 d flops per passing (query, row) pair,
-    plus 2 d per row read for |x|^2 under l2."""
+    row), the queries, the ``rows`` rows some query passes (``x_bytes``
+    an element: 2 for a 16-bit corpus) and the (ids, dists) output, each
+    once; 2 d flops per passing (query, row) pair, plus 2 d per row read
+    for |x|^2 under l2."""
     norms = 2 * d * rows if metric == "l2" else 0
     return (2 * d * pairs + norms,
-            b * n + 4 * (b * d + rows * d) + 8 * b * k)
+            b * n + q_bytes * b * d + x_bytes * rows * d + 8 * b * k)
 
 
 def pna_aggregate_cost(b: int, n: int, f: int, *, edges: int,

@@ -17,8 +17,9 @@ from .ref import MODES
 
 def embedding_bag_cuda(ids: torch.Tensor, table: torch.Tensor,
                        mode: str = "sum") -> torch.Tensor:
-    """ids (B, L) int32 (-1 padded), table (V, D) f32 -> (B, D) f32, as
-    :func:`embedding_bag_ref` returns it.
+    """ids (B, L) int32 (-1 padded), table (V, D) fp32, bf16 or fp16 ->
+    (B, D) in the table's dtype, as :func:`embedding_bag_ref` returns it
+    (a 16-bit table summed and divided in fp32, rounded once).
 
     CUDA tensors only, contiguous; any other dtype raises ``TypeError``
     (no cast).  Raises ``ValueError`` for a mode other than ``"sum"`` and
@@ -28,12 +29,12 @@ def embedding_bag_cuda(ids: torch.Tensor, table: torch.Tensor,
         raise ValueError(mode)
     loader.check_tensors("embedding_bag_cuda", table.device,
                          [("ids", ids, torch.int32, 2),
-                          ("table", table, torch.float32, 2)])
+                          ("table", table, loader.floats(), 2)])
     b, l = ids.shape
     v, d = table.shape
     if v < 1:
         raise ValueError("embedding_bag_cuda: the table has no rows")
-    out = torch.empty((b, d), dtype=torch.float32, device=table.device)
+    out = torch.empty((b, d), dtype=table.dtype, device=table.device)
     if out.numel() == 0:
         return out
     lib = loader.library()
@@ -41,7 +42,8 @@ def embedding_bag_cuda(ids: torch.Tensor, table: torch.Tensor,
         stream = torch.cuda.current_stream(table.device).cuda_stream
         rc = lib.repro_embedding_bag(ids.data_ptr(), table.data_ptr(),
                                      out.data_ptr(), b, l, v, d,
-                                     int(mode == "mean"), stream)
+                                     int(mode == "mean"),
+                                     loader.float_code(table), stream)
         embedding_bag_cuda.launches += 1
     loader.check(rc, "embedding_bag")
     return out

@@ -69,8 +69,9 @@ def embedding_bag(ids: Tensor, table: Tensor, mode: str = "sum") -> Tensor:
 
     Ids are clipped into [0, V-1]: an id >= V reads row V-1 and counts as
     valid, as in the reference; an id < 0 adds nothing.  Mean divides by
-    max(count, 1).  On the card, ids must be int32 and the table fp32
-    (``TypeError`` otherwise, no cast).  Raises ``ValueError`` for a mode
+    max(count, 1).  On the card, ids must be int32 and the table fp32,
+    bf16 or fp16 (``TypeError`` otherwise, no cast); the output has the
+    table's dtype, a 16-bit table summed in fp32 and rounded once.  Raises ``ValueError`` for a mode
     other than ``"sum"`` and ``"mean"`` on both devices, where the
     reference's Pallas route silently sums (a quirk not reproduced)."""
     return _EmbeddingBag.apply(ids, table, mode)

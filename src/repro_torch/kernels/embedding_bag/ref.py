@@ -4,7 +4,9 @@
 Ids are clipped into [0, V-1] before the row gather, and an id < 0 adds
 nothing and is not counted.  So an id >= V reads row V-1 and *counts as
 valid*: a quirk of the reference, reproduced.  Mean divides by
-max(count, 1), so an all-padding bag gives zeros in both modes.
+max(count, 1), so an all-padding bag gives zeros in both modes.  A bf16 or
+fp16 table is summed and divided in fp32 and rounded once to its dtype, as
+the kernel computes it.
 """
 from __future__ import annotations
 
@@ -23,12 +25,15 @@ def embedding_bag_ref(ids: Tensor, table: Tensor, mode: str = "sum"
         raise ValueError(mode)
     safe = ids.clamp(0, table.shape[0] - 1).long()
     rows = table[safe]                                   # (B, L, D)
+    half = table.dtype in (torch.bfloat16, torch.float16)
+    if half:
+        rows = rows.float()
     valid = (ids >= 0)[..., None]
     summed = torch.where(valid, rows, 0.0).sum(dim=1)
-    if mode == "sum":
-        return summed
-    cnt = (ids >= 0).sum(dim=1, keepdim=True).clamp_min(1)
-    return summed / cnt.to(table.dtype)
+    if mode == "mean":
+        cnt = (ids >= 0).sum(dim=1, keepdim=True).clamp_min(1)
+        summed = summed / cnt.to(summed.dtype)
+    return summed.to(table.dtype) if half else summed
 
 
 def embedding_bag_segment_ref(flat_ids: Tensor, segment_ids: Tensor,

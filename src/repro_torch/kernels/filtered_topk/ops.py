@@ -27,7 +27,8 @@ def filtered_topk_meta(q: torch.Tensor, x: torch.Tensor, k: int,
     if k > n:
         raise ValueError(f"filtered_topk: k = {k} > n = {n}")
     record_kernel("filtered_topk", *filtered_topk_cost(
-        b, n, d, k, metric, rows=n, pairs=b * n))
+        b, n, d, k, metric, rows=n, pairs=b * n, q_bytes=q.element_size(),
+        x_bytes=x.element_size()))
     return (torch.empty((b, k), dtype=torch.int32, device="meta"),
             torch.empty((b, k), dtype=torch.float32, device="meta"))
 
@@ -36,8 +37,9 @@ def filtered_topk(q: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                   k: int, metric: str = "l2"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact masked top-k: q (B, d), x (n, d), mask (B, n) bool ->
-    (ids (B, k) int32, -1 padded; dists (B, k): squared L2, or +q.x for
-    ip).  Raises ``ValueError`` for k > n."""
+    (ids (B, k) int32, -1 padded; dists (B, k) fp32: squared L2, or +q.x
+    for ip).  q and x may be fp32, bf16 or fp16 (scored in fp32 from the
+    stored values), any 0 <= k <= n.  Raises ``ValueError`` for k > n."""
     if x.device.type == "meta":
         return filtered_topk_meta(q, x, k, metric)
     if x.device.type == "cpu":

@@ -32,6 +32,10 @@ SOURCES = ("embedding_bag.cu", "filtered_topk.cu", "gather_distance.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the element types a kernel reads as stored, by the code its C entry
+# point takes (fp32 0, bf16 1, fp16 2)
+FLOAT_TYPES = ("float32", "bfloat16", "float16")
+
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 # filled by the build that loaded the library (None when it was reused)
@@ -103,35 +107,51 @@ def library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.repro_gather_distance.argtypes = [p, p, p, p, i, i, i, i, i, p]
             lib.repro_gather_distance.restype = i
-            lib.repro_neighbor_expand.argtypes = [p, p, p, p, p, p, i, i, i,
-                                                  i, i, i, i, p]
+            lib.repro_neighbor_expand.argtypes = [p, p, p, p, p, p, p, i, i,
+                                                  i, i, i, i, i, p]
             lib.repro_neighbor_expand.restype = i
             lib.repro_neighbor_expand_smem_bytes.argtypes = [i, i]
             lib.repro_neighbor_expand_smem_bytes.restype = i
+            lib.repro_neighbor_expand_set_words.argtypes = [i, i]
+            lib.repro_neighbor_expand_set_words.restype = ctypes.c_longlong
             lib.repro_filtered_topk.argtypes = [p, p, p, p, p, p, p, i, i, i,
-                                                i, i, p]
+                                                i, i, i, i, p]
             lib.repro_filtered_topk.restype = i
             lib.repro_filtered_topk_workspace.argtypes = [i, i, i]
             lib.repro_filtered_topk_workspace.restype = ctypes.c_longlong
             lib.repro_pna_aggregate.argtypes = [p, p, p, i, i, i, p]
             lib.repro_pna_aggregate.restype = i
-            lib.repro_embedding_bag.argtypes = [p, p, p, i, i, i, i, i, p]
+            lib.repro_embedding_bag.argtypes = [p, p, p, i, i, i, i, i, i,
+                                                p]
             lib.repro_embedding_bag.restype = i
             _LIB = lib
         return _LIB
 
 
+def float_code(t) -> int:
+    """The C entry points' code of a tensor of one of ``FLOAT_TYPES``."""
+    return FLOAT_TYPES.index(str(t.dtype).rsplit(".", 1)[-1])
+
+
+def floats():
+    """The dtypes of ``FLOAT_TYPES``, for :func:`check_tensors`."""
+    import torch
+    return tuple(getattr(torch, name) for name in FLOAT_TYPES)
+
+
 def check_tensors(fn: str, dev, named) -> None:
     """Raise unless each ``(name, tensor, dtype, ndim)`` of ``named`` is a
-    contiguous ``ndim``-D tensor of ``dtype`` on the CUDA device ``dev``:
-    ``ValueError`` for the device, the rank or the layout, ``TypeError``
-    for the dtype (no cast)."""
+    contiguous ``ndim``-D tensor of ``dtype`` (or of one of a tuple of
+    dtypes) on the CUDA device ``dev``: ``ValueError`` for the device, the
+    rank or the layout, ``TypeError`` for the dtype (no cast)."""
     for name, t, dt, nd in named:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{fn}: {name} on {t.device}, expected {dev} "
                              "(cuda)")
-        if t.dtype != dt:
-            raise TypeError(f"{fn}: {name} is {t.dtype}, expected {dt}")
+        allowed = dt if isinstance(dt, tuple) else (dt,)
+        if t.dtype not in allowed:
+            want = " or ".join(str(a) for a in allowed)
+            raise TypeError(f"{fn}: {name} is {t.dtype}, expected {want}")
         if t.dim() != nd or not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be a contiguous {nd}-D "
                              "tensor")

@@ -7,6 +7,9 @@ design does about it.  Edge cases follow the TPU wrapper: a zero-width head
 (``m_beta = 0``) or tail (``m_beta = cap``) contributes nothing, an empty
 level table (``n_l = 0``) makes every 2-hop row absent, and under
 'compress' a tail id whose row is absent is still itself a candidate.
+Where the dedup set of a (cap, m) call outgrows the block's shared memory
+(m > 7,680 at cap = 128) the kernel's global-set variant runs, with one
+set a lane in a workspace allocated here.
 """
 from __future__ import annotations
 
@@ -17,9 +20,6 @@ import torch
 from repro_torch.kernels import loader
 
 STRATEGIES = {"filter": 0, "compress": 1, "two_hop": 2}
-
-# shared memory a block may take on an H100 (the kernel opts in above 48 KB)
-_SMEM_LIMIT = 227 * 1024
 
 
 def neighbor_expand_cuda(row: torch.Tensor, nbr_table: torch.Tensor,
@@ -58,19 +58,19 @@ def neighbor_expand_cuda(row: torch.Tensor, nbr_table: torch.Tensor,
         raise ValueError("neighbor_expand_cuda: pos is empty")
     m_beta = min(max(m_beta, 0), cap)
     lib = loader.library()
-    smem = lib.repro_neighbor_expand_smem_bytes(cap, m)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"neighbor_expand_cuda: cap={cap}, m={m} needs "
-                         f"{smem} B of shared memory (> {_SMEM_LIMIT}); its "
-                         "dedup set grows with m")
     out = torch.empty((b, m), dtype=torch.int32, device=dev)  # kernel fills
+    # the global-set variant's sets, one a lane (none when the shared-memory
+    # set fits); freed on return, as filtered_topk's workspace is
+    words = lib.repro_neighbor_expand_set_words(cap, m)
+    sets = torch.empty(b * words, dtype=torch.int64, device=dev) if words \
+        else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.repro_neighbor_expand(
             row.data_ptr(), nbr_table.data_ptr(), pos.data_ptr(),
-            ptr(pass_mask), ptr(visited), out.data_ptr(), b, cap, n, n_l, m,
-            m_beta, STRATEGIES[strategy], stream)
+            ptr(pass_mask), ptr(visited), out.data_ptr(), ptr(sets), b, cap,
+            n, n_l, m, m_beta, STRATEGIES[strategy], stream)
         neighbor_expand_cuda.launches += 1
     loader.check(rc, "neighbor_expand")
     return out

@@ -151,7 +151,7 @@ def is_host_read(exc: BaseException) -> bool:
 
 
 def host_read_site(exc: BaseException) -> str:
-    """``models/recsys.py:575``: the innermost frame of ``exc``'s traceback
+    """``core/search.py:161``: the innermost frame of ``exc``'s traceback
     inside the port's package, outside this launcher and the counter."""
     site = "?"
     for fr in traceback.extract_tb(exc.__traceback__):

@@ -24,8 +24,9 @@ hypothesis and two measurements:
 Cells (the reference's):
   1. acorn ``serve_25m``: the baseline, the chunked scan, the scan over a
      bf16 corpus, ``filtered_topk`` (the CUDA kernel on the rank's block,
-     then the step's global merge) and a modeled bf16 ``filtered_topk``
-     (the kernel takes fp32 only).  Timed at rank 0's block: 98,304 rows.
+     then the step's global merge) and ``filtered_topk`` on a bf16 corpus
+     (the entry the reference models, counted and timed here under the
+     reference's name).  Timed at rank 0's block: 98,304 rows.
   2. smollm-360m ``train_4k``: the ``baseline`` and ``pure_dp`` layouts
      and ``pure_dp`` with bf16 logits.  On one card the layouts are one
      program, timed once; timed at (layers, batch) ``SMOLLM_TIMED``.
@@ -63,8 +64,7 @@ from repro_torch.distributed.collectives import all_gather_cat, top_k
 from repro_torch.kernels.filtered_topk import filtered_topk
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
-from repro_torch.launch.roofline import (HBM_BYTES_PER_S,
-                                         ROOFLINE_FLOP_SHARE_MAX, Roofline,
+from repro_torch.launch.roofline import (ROOFLINE_FLOP_SHARE_MAX, Roofline,
                                          analyze)
 from repro_torch.train.optimizer import init_adamw
 
@@ -100,11 +100,17 @@ ACORN_VARIANTS = (
      "the kernel keeps each score tile on chip: HBM traffic = corpus + "
      "masks + per-tile top-k only (counted by kernels/cost.py's formula; "
      "launched on the card)", dict(kernel=True)),
+    ("filtered_topk (modeled, bf16)",
+     "the kernel's traffic with a bf16 corpus: corpus/2 + masks + per-tile "
+     "top-k (counted by kernels/cost.py's formula at 2 bytes a corpus "
+     "element; launched on the card)", dict(kernel=True, bf16=True)),
 )
-MODELED_BF16 = (
-    "filtered_topk (modeled, bf16)",
-    "the kernel's traffic with a bf16 corpus: corpus/2 + masks + per-tile "
-    "top-k (analytic: the kernel takes fp32 only)")
+# the variant whose name is the reference's for an entry it only models
+ACORN_NOTES = {
+    "filtered_topk (modeled, bf16)":
+        "the reference models this entry analytically; the port counts it "
+        "and times the kernel on a bf16 corpus (the name is the "
+        "reference's)"}
 
 SMOLLM_VARIANTS = (
     ("baseline",
@@ -327,7 +333,7 @@ def _acorn_step(mesh, reduced: bool, optimized=False, kernel=False,
 
 
 def acorn_counted(reduced: bool = False) -> List[dict]:
-    """The four variants' entries, counted at 16 x 16 (in a fake
+    """The five variants' entries, counted at 16 x 16 (in a fake
     group)."""
     arch = get_arch("acorn")
     mesh = make_production_mesh()
@@ -338,37 +344,8 @@ def acorn_counted(reduced: bool = False) -> List[dict]:
             x = torch.empty(x.shape, dtype=torch.bfloat16, device="meta")
         out.append(counted_entry(variant, hyp, arch, None, ACORN_SHAPE,
                                  _acorn_step(mesh, reduced, **kw),
-                                 (x, q, m)))
+                                 (x, q, m), note=ACORN_NOTES.get(variant)))
     return out
-
-
-def acorn_modeled(kernel: dict, baseline: dict,
-                  reduced: bool = False) -> dict:
-    """The bf16 ``filtered_topk`` entry, analytic: the reference's bytes
-    (a bf16 corpus block, the mask block, per-tile top-k outputs) at the
-    card's HBM rate; the compute term of the fp32 kernel variant as
-    counted; the collective term and bytes of the baseline as counted."""
-    spec = (REDUCED_ACORN_SHAPES if reduced else ACORN_SHAPES)[ACORN_SHAPE]
-    n, d, b, k = spec["n"], spec["d"], spec["batch"], spec["k"]
-    corpus = n * d * 2 / RANKS
-    masks = b * n * 1 / RANKS
-    outs = b * (n // 512 // 512) * k * 8
-    nbytes = corpus + masks + outs
-    rk, rb = kernel["roofline"], baseline["roofline"]
-    terms = dict(t_compute=rk["t_compute"], t_memory=nbytes / HBM_BYTES_PER_S,
-                 t_collective=rb["t_collective"])
-    return dict(
-        variant=MODELED_BF16[0], hypothesis=MODELED_BF16[1],
-        roofline=dict(flops_per_chip=rk["flops_per_chip"],
-                      bytes_per_chip=nbytes,
-                      collective_bytes_per_chip=rb[
-                          "collective_bytes_per_chip"],
-                      **terms, bottleneck=max(terms, key=terms.get)[2:],
-                      model_flops=None, useful_flops_ratio=None,
-                      collectives=rb["collectives"], modeled=True),
-        count_s=None, compute="sharded", kernels={}, timed=None,
-        note="modeled: the kernel takes an fp32 corpus only "
-             "(kernels/filtered_topk/kernel.py)")
 
 
 def acorn_inputs(n: int, d: int, b: int, dev: torch.device) -> tuple:
@@ -388,12 +365,13 @@ def acorn_inputs(n: int, d: int, b: int, dev: torch.device) -> tuple:
 
 def acorn_timed(device: DeviceLike = "cuda",
                 reduced: bool = False) -> Dict[str, dict]:
-    """{variant: timed record} of the four acorn variants on one device,
+    """{variant: timed record} of the five acorn variants on one device,
     at rank 0's block of the 16 x 16 mesh (``serve_25m``: 98,304 rows;
     REDUCED: the whole cell), each checked against the baseline: the
-    chunked scan's ids identical and dists within ``DIST_ATOL``; the bf16
-    corpus's ids overlapping the baseline's by ``BF16_OVERLAP_MIN``;
-    ``filtered_topk``'s ids identical except at near ties."""
+    chunked scan's ids identical and dists within ``DIST_ATOL``; a bf16
+    corpus's ids (the scan's and ``filtered_topk``'s) overlapping the
+    baseline's by ``BF16_OVERLAP_MIN``; ``filtered_topk``'s ids identical
+    except at near ties."""
     dev = resolve_device(device)
     spec = (REDUCED_ACORN_SHAPES if reduced else ACORN_SHAPES)[ACORN_SHAPE]
     b, d, k = spec["batch"], spec["d"], spec["k"]
@@ -435,12 +413,10 @@ def acorn_timed(device: DeviceLike = "cuda",
 
 def cell_acorn(entries: List[dict], device: DeviceLike,
                reduced: bool = False) -> List[dict]:
-    """The counted ``entries`` with each variant's ``timed``, then the
-    modeled entry."""
+    """The counted ``entries`` with each variant's ``timed``."""
     timed = acorn_timed(device, reduced)
     for e in entries:
         e["timed"] = timed[e["variant"]]
-    entries.append(acorn_modeled(entries[3], entries[0], reduced))
     return entries
 
 

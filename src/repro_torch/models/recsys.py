@@ -564,15 +564,15 @@ def dien_score_candidates(cfg: DIENConfig, model: DIEN,
 
     The AUGRU's input side ``interest_t @ wi + b`` is the same for every
     candidate, so it is formed once per step (the reference broadcasts
-    it), and the user's masked steps, which carry the state unchanged,
-    are skipped (one host read of the mask)."""
+    it).  Every one of the S steps runs and a masked step keeps the state
+    (``torch.where`` on the device, as the reference's scan), so nothing
+    is read on the host."""
     hi = index_rows(model.item_emb, batch["hist_items"].clamp_min(0))
     hc = index_rows(model.cate_emb, batch["hist_cates"].clamp_min(0))
     h_seq = torch.cat([hi, hc], dim=-1)                      # (1, S, 2E)
     mask = batch["mask"].to(h_seq.dtype)
     interests = gru_scan(model.gru1, h_seq, mask)[0]         # (S, G)
     keep = mask[0] > 0
-    steps = torch.nonzero(keep).flatten().tolist()
     gi = torch.addmm(model.augru.b, interests, model.augru.wi)   # (S, 3G)
     key = interests @ model.att_w                            # (S, 2E)
     hist_sum = (h_seq[0] * mask[0][:, None]).sum(dim=0)      # (2E,)
@@ -587,8 +587,9 @@ def dien_score_candidates(cfg: DIENConfig, model: DIEN,
         att_logits = torch.where(keep[None], tgt @ key.T, -1e30)   # (C, S)
         att = torch.softmax(att_logits, dim=-1).T.contiguous()     # (S, C)
         h = tgt.new_zeros((rows, cfg.gru_dim))
-        for t in steps:
-            h = _cell(gi[t], h, model.augru.wh, att[t])[0]
+        for t in range(keep.shape[0]):
+            h = torch.where(keep[t], _cell(gi[t], h, model.augru.wh,
+                                           att[t])[0], h)
         hs = hist_sum.expand_as(tgt)
         z = torch.cat([h, tgt, hs, tgt * hs], dim=-1)
         scores[sl] = model.mlp(z)[:, 0]

@@ -10,7 +10,11 @@ tolerance for this op (``tests/test_kernels.py:206,222``): the rows of a
 bag are summed in another order.  Ids >= V are clipped to row V-1 and
 count as valid (the reference's quirk, reproduced); a mode other than sum
 and mean raises on both devices, where the reference's Pallas route
-silently sums (not reproduced).  The CUDA kernel is held against the plain
+silently sums (not reproduced).  A bf16 or fp16 table gives an output of
+its dtype, summed and divided in fp32 and rounded once; it is held to the
+reference's oracle on the same 16-bit table within one unit in the last
+place of the output dtype times the bag's sum of |rows| (the reference
+sums in the table's dtype).  The CUDA kernel is held against the plain
 version on the card (skipped without one).
 """
 import jax
@@ -27,9 +31,13 @@ from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                embedding_bag_cuda,
                                                embedding_bag_ref,
                                                embedding_bag_segment_ref)
-from torch_parity import cuda_device  # noqa: F401  (fixture)
+from torch_parity import (cuda_device,  # noqa: F401  (fixture)
+                          load_chip_smoke)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+# 16-bit tables: the torch and jnp dtypes and one unit in the last place
+HALF = {"bf16": (torch.bfloat16, jnp.bfloat16, 2.0 ** -7),
+        "fp16": (torch.float16, jnp.float16, 2.0 ** -10)}
 
 
 def _inputs(b, l, v, d, kind="random", seed=0):
@@ -80,6 +88,46 @@ def test_forward_and_grad_match_reference(case, mode):
         embedding_bag_ref(torch.from_numpy(ids), torch.from_numpy(table),
                           mode).numpy(),
         np.asarray(jax_ref(ji, jt, mode)), **TOL)
+
+
+def _abs_sum(ids, table, mode):
+    """Per bag and column, the sum of |rows| its valid ids read (over the
+    count for mean): the scale of one rounding of the output."""
+    rows = np.abs(table[np.clip(ids, 0, table.shape[0] - 1)]).astype(
+        np.float64) * (ids >= 0)[..., None]
+    s = rows.sum(axis=1)
+    if mode == "mean":
+        s = s / np.maximum((ids >= 0).sum(axis=1, keepdims=True), 1)
+    return s
+
+
+def _assert_within_ulp(got, want, ids, table, mode, ulp):
+    gap = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert (gap <= ulp * _abs_sum(ids, table, mode)).all(), gap.max()
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("half", sorted(HALF))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_16bit_table_matches_reference(case, half, mode):
+    """A bf16 or fp16 table: the output has its dtype and is within one
+    unit in the last place (times the bag's sum of |rows|) of the
+    reference's oracle on the same table."""
+    tdt, jdt, ulp = HALF[half]
+    ids, table, _ = _inputs(**CASES[case], seed=len(case))
+    t16 = torch.from_numpy(table).to(tdt)
+    tw = t16.float().numpy()
+    want = jax_ref(jnp.asarray(ids), jnp.asarray(tw).astype(jdt), mode)
+    assert want.dtype == jdt
+    got = embedding_bag(torch.from_numpy(ids), t16, mode)
+    assert got.dtype == tdt
+    _assert_within_ulp(got.float().numpy(),
+                       np.asarray(want).astype(np.float32), ids, tw, mode,
+                       ulp)
+    # the plain version rounds once what it sums in fp32
+    wide = embedding_bag_ref(torch.from_numpy(ids), t16.float(), mode)
+    assert torch.equal(embedding_bag_ref(torch.from_numpy(ids), t16, mode),
+                       wide.to(tdt))
 
 
 def test_clip_quirk_reads_the_last_row_and_counts_it():
@@ -154,10 +202,45 @@ def test_cuda_kernel_matches_plain_version(cuda_device, ci, mode):
     np.testing.assert_allclose(grad.cpu().numpy(), want_grad.numpy(), **TOL)
 
 
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("half", sorted(HALF))
+@pytest.mark.parametrize("ci", range(len(CARD_CASES)))
+def test_cuda_kernel_16bit_matches_plain_version(cuda_device, ci, half,
+                                                 mode):
+    """The kernel on a bf16 or fp16 table against the plain version on the
+    card: the output in the table's dtype, within one unit in its last
+    place (times the bag's sum of |rows|; fp32 sums in another order)."""
+    tdt, _, ulp = HALF[half]
+    ids, table, _ = (torch.from_numpy(a).to(cuda_device)
+                     for a in _inputs(**CARD_CASES[ci], seed=ci))
+    t16 = table.to(tdt)
+    got = embedding_bag_cuda(ids, t16, mode)
+    want = embedding_bag_ref(ids, t16, mode)
+    torch.cuda.synchronize()
+    assert got.dtype == tdt
+    _assert_within_ulp(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                       ids.cpu().numpy(), t16.float().cpu().numpy(), mode,
+                       ulp)
+
+
 def test_cuda_kernel_refuses_other_dtypes(cuda_device):
     ids, table, _ = (torch.from_numpy(a).to(cuda_device)
                      for a in _inputs(2, 3, 5, 4))
     with pytest.raises(TypeError, match="int32"):
         embedding_bag(ids.long(), table)
     with pytest.raises(TypeError, match="float32"):
-        embedding_bag(ids, table.to(torch.bfloat16))
+        embedding_bag(ids, table.double())
+
+
+def test_chip_smoke_draws_the_card_cases():
+    """chip_smoke.py holds the kernel to the plain version (fp32, and the
+    16-bit copies within the same one unit in the last place) at the same
+    cases as this file's card tests, drawn from the same seeds."""
+    smoke = load_chip_smoke()
+    assert smoke.BAG_EDGE_CASES == CARD_CASES
+    assert smoke.HALF_ULP == {str(t).split(".")[-1]: ulp
+                              for t, _, ulp in HALF.values()}
+    for ci, case in enumerate(CARD_CASES):
+        for got, want in zip(smoke.bag_inputs(**case, seed=ci),
+                             _inputs(**case, seed=ci)):
+            np.testing.assert_array_equal(got, want)

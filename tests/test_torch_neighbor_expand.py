@@ -11,7 +11,10 @@ one more case has the search path's shape (cap = 128, m = 32, m_beta = 64,
 duplicate-heavy 2-hop rows) with every lane stopping past stream position
 1,024.  The CUDA kernel's edge cases (``CARD_CASES``, the same list as
 ``chip_smoke.py``'s ``NE_EDGE_CASES``) are held against the reference on
-the CPU and against the plain version on the card (skipped without one).
+the CPU and against the plain version on the card (skipped without one),
+and so are the shapes whose dedup set outgrows a block's shared memory
+(``WIDE_CASES``: m = 8,192 and 16,384 at cap = 128), where the kernel
+keeps its sets in global memory.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +30,8 @@ from repro_torch.kernels.neighbor_expand import (neighbor_expand,
                                                  neighbor_expand_ref)
 from repro_torch.kernels.neighbor_expand.ref import (_dedup_argsort, _passes,
                                                      expansion_candidates)
-from torch_parity import cuda_device  # noqa: F401  (fixture)
+from torch_parity import (cuda_device,  # noqa: F401  (fixture)
+                          load_chip_smoke)
 
 B, CAP, N, N_L, M = 4, 8, 30, 20, 6
 
@@ -56,6 +60,14 @@ CARD_CASES = [
          p_pass=0.03),
 ]
 PATH = len(CARD_CASES) - 1   # the path-shape case
+# m past the shared-memory dedup set (2^bits 8-byte slots > 227 KB from
+# m = 7,681 at cap = 128): the global-set variant, the same as
+# NE_WIDE_CASES in chip_smoke.py (case i drawn with seed i by _edge_inputs)
+WIDE_CASES = [
+    dict(strategy="two_hop", cap=128, m=8192, n=200_000),
+    dict(strategy="two_hop", cap=128, m=16_384, n=200_000),
+    dict(strategy="compress", cap=128, m=8192, m_beta=32, n=200_000),
+]
 
 
 def _fib_slot(ids, bits):
@@ -225,3 +237,53 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case):
         torch.cuda.synchronize()
         assert torch.equal(got, neighbor_expand_ref(row, tbl, pos, p_, v_,
                                                     **kw))
+
+
+def _wide_call(ci):
+    case = WIDE_CASES[ci]
+    kw = dict(strategy=case["strategy"], m=case["m"],
+              m_beta=case.get("m_beta", 0))
+    return _edge_inputs(**case, seed=ci), kw
+
+
+def _wide_id(ci):
+    case = WIDE_CASES[ci]
+    return f"{case['strategy']}-cap{case['cap']}-m{case['m']}"
+
+
+@pytest.mark.parametrize("ci", range(len(WIDE_CASES)), ids=_wide_id)
+def test_wide_m_matches_reference(ci):
+    """m past the kernel's shared-memory set: the port's op equals the
+    reference's ``neighbor_expand_ref`` exactly, with the mask and the
+    visited set; lanes pack thousands of ids."""
+    arrays, kw = _wide_call(ci)
+    want = np.asarray(jax_ref(*(jnp.asarray(a) for a in arrays), **kw))
+    got = neighbor_expand(*(torch.from_numpy(a) for a in arrays), **kw)
+    assert np.array_equal(got.numpy(), want)
+    assert (want >= 0).sum(axis=1).min() > 1024
+
+
+@pytest.mark.parametrize("ci", range(len(WIDE_CASES)), ids=_wide_id)
+def test_cuda_kernel_wide_m_matches_plain_version(cuda_device, ci):
+    arrays, kw = _wide_call(ci)
+    row, tbl, pos, pm, vis = (torch.from_numpy(a).to(cuda_device)
+                              for a in arrays)
+    for p_, v_ in ((None, None), (pm, None), (None, vis), (pm, vis)):
+        got = neighbor_expand_cuda(row, tbl, pos, p_, v_, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, neighbor_expand_ref(row, tbl, pos, p_, v_,
+                                                    **kw))
+
+
+@pytest.mark.parametrize("which", ["edge", "wide"])
+def test_chip_smoke_draws_the_card_cases(which):
+    """chip_smoke.py holds the kernel to the plain version at the same
+    cases as this file's card tests, drawn from the same seeds."""
+    smoke = load_chip_smoke()
+    mine, theirs = {"edge": (CARD_CASES, smoke.NE_EDGE_CASES),
+                    "wide": (WIDE_CASES, smoke.NE_WIDE_CASES)}[which]
+    assert theirs == mine
+    for ci, case in enumerate(mine):
+        for got, want in zip(smoke.expand_edge_inputs(**case, seed=ci),
+                             _edge_inputs(**case, seed=ci)):
+            np.testing.assert_array_equal(got, want)

@@ -6,6 +6,7 @@ tests compare on the CPU, and a test that needs the card asks for the
 run time, never at import time).
 """
 import datetime
+import importlib.util
 import os
 import pickle
 import time
@@ -33,6 +34,17 @@ KW_WORDS = ["animal", "green", "blue", "city", "ocean"]
 # query agree this closely may swap places between the packages (their
 # fp32 sums run in different orders)
 NEAR_TIE_REL = 1e-5
+
+
+def load_chip_smoke():
+    """chip_smoke.py, loaded from the repo root (it imports no torch or
+    JAX at module level)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture
