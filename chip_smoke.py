@@ -19,9 +19,9 @@
                             # decode_32k; gemma3's long_500k), and last
                             # the perf twin's timed variants
     python3 chip_smoke.py --baseline DIR   # also time the gather_distance.cu,
-                            # neighbor_expand.cu, filtered_topk.cu and
-                            # pna_aggregate.cu in DIR (an earlier version)
-                            # in turns with the port's
+                            # neighbor_expand.cu, filtered_topk.cu,
+                            # pna_aggregate.cu and embedding_bag.cu in DIR
+                            # (an earlier version) in turns with the port's
     python3 chip_smoke.py --profile        # also trace requests (device time
                             # and launches of each of the port's kernels)
 
@@ -139,7 +139,11 @@ Phases, each printed on its own line:
            offsets); the same on bf16 and fp16 copies of the table (and of
            the edge cases' tables: the output in the table's dtype, within
            one unit in its last place times the bag's sum of |rows|),
-           ``F.embedding_bag`` on the 16-bit table beside it; then the op
+           ``F.embedding_bag`` on the 16-bit table beside it (with
+           ``--baseline``, each of these 12 timed in turns with the earlier
+           ``embedding_bag.cu``: ``baseline_ms``, ``speedup``,
+           ``bit_identical_to_baseline``, and the edge cases' bits against
+           it in all three dtypes); then the op
            at those shapes (fp32) with the launch counters
            zeroed just before and read just after, and its gradient at
            (65,536, 4) against a CPU copy.  Then ``make_sharded_lookup``
@@ -243,18 +247,18 @@ Phases, each printed on its own line:
            bytes.  gather_distance (d = 512, l2 and ip, 10 % -1 ids) and
            neighbor_expand (compress and two_hop, m = 16, m_beta = 32) held
            against their plain versions on shard 0's graph and timed
-           (``other_shapes`` entries with ``phase: engine``).  256
+           (``other_shapes`` entries with ``phase: engine``).  128
            ``contains`` queries through ``engine.serve`` in batches of 32
            after one warm-up batch, counters zeroed just before and read
            just after (``engine_launches`` of both records): QPS, batch
            times, route split, recall@10 per route against ``masked_topk``
            over the whole corpus, every returned id checked against its
-           predicate; 64 queries of each of ``ENGINE_KINDS`` (the regex
-           pass over 2^20 captions logged on its own line); the first 64
+           predicate; 32 queries of each of ``ENGINE_KINDS`` (the regex
+           pass over 2^20 captions logged on its own line); the first 32
            queries of the closed loop and of each kind forced onto the
            graph route at ef 64 and 256, with the generator clusters their
            exact top-10 span (``graph_forced``); an open loop of
-           64 requests of 4 queries through ``ServingRuntime`` at seeded
+           32 requests of 4 queries through ``ServingRuntime`` at seeded
            Poisson arrivals, 50 % of the closed loop's QPS (sustained QPS,
            p50 / p99, shed, dispatches, batch sizes; every served query's
            ids held to the closed loop's, near ties counted); an overload
@@ -272,7 +276,7 @@ Phases, each printed on its own line:
            phase's corpus, so it takes the SPMD path on a 1 x 1 mesh
            (checked); gather_distance and neighbor_expand held to their
            plain versions on the (2^20, 512) shard that path searches, as
-           the engine phase holds them on its own shard; the first 256
+           the engine phase holds them on its own shard; the 128
            closed-loop queries through ``search_batch`` (launch counters
            zeroed just before, read just after: both graph kernels must
            launch), again (no new variant), and through
@@ -475,7 +479,12 @@ BAG_EDGE_CASES = [
     dict(b=6, l=5, v=9, d=8, kind="clip"),
     dict(b=4, l=6, v=20, d=8, kind="dup"), dict(b=7, l=5, v=30, d=13),
     dict(b=1000, l=4, v=5000, d=256), dict(b=33, l=9, v=70, d=260),
-    dict(b=9, l=3, v=40, d=600), dict(b=5, l=0, v=10, d=8)]
+    dict(b=9, l=3, v=40, d=600), dict(b=5, l=0, v=10, d=8),
+    dict(b=64, l=33, v=500, d=256), dict(b=32, l=100, v=5000, d=256),
+    dict(b=16, l=4, v=100, d=1024), dict(b=16, l=5, v=100, d=1028),
+    dict(b=1, l=4, v=100, d=256), dict(b=131, l=4, v=1000, d=256),
+    dict(b=8, l=40, v=300, d=256, kind="empty_bag"),
+    dict(b=8, l=33, v=40, d=256, kind="clip")]
 
 # PNA dense-batched inference (repro_torch/configs/pna.py, molecule shape)
 PNA_REQUESTS, PNA_WARMUP, PNA_PARITY = 64, 2, 8
@@ -508,8 +517,10 @@ ENGINE_M, ENGINE_GAMMA, ENGINE_M_BETA, ENGINE_EF_SEARCH = 16, 12, 32, 96
 ENGINE_BATCH, ENGINE_K = 32, 10
 # `contains` queries, correlation none, seed 1 (cut from 1,024 to fit the
 # run's time)
-ENGINE_CLOSED = 256     # closed-loop queries (cut from 512 for the run's time)
-ENGINE_KIND_QUERIES = 64   # each of ENGINE_KINDS, seed 2
+# closed-loop queries, and queries of each of ENGINE_KINDS (seed 2): cut
+# from 512 and 64 (then 256) for the run's time
+ENGINE_CLOSED = 128
+ENGINE_KIND_QUERIES = 32
 ENGINE_KINDS = (("between", "none"), ("contains+between", "none"),
                 ("regex", "none"), ("contains", "pos"), ("contains", "neg"))
 OPEN_REQUESTS, OPEN_SIZE = 256, 4   # open loop: requests of 4 queries
@@ -518,7 +529,7 @@ OVERLOAD_REQUESTS, OVERLOAD_QUEUE = 64, 64
 ENGINE_PARITY = 16                  # graph-route queries on a CPU copy
 # the first queries of the closed loop and of each kind, forced onto the
 # graph route at each ef: does graph recall rise with the search's budget?
-ENGINE_SWEEP_QUERIES, ENGINE_EF_SWEEP = 64, (64, 256)
+ENGINE_SWEEP_QUERIES, ENGINE_EF_SWEEP = 32, (64, 256)   # (cut from 64)
 
 # Figure 7 (§7.2) on the build phase's data and queries: ACORN-1, HNSW
 # post-filtering and the oracle partition index (one HNSW per label) beside
@@ -747,13 +758,17 @@ def neighbor_expand_bound(row, tbl, pos, pm, vis, strategy, m, m_beta):
 
 def baseline_kernels(src_dir: str) -> tuple:
     """An earlier ``gather_distance.cu``, ``neighbor_expand.cu``,
-    ``filtered_topk.cu`` and ``pna_aggregate.cu`` from ``src_dir`` (the
-    same C entry points, names and arguments; ``filtered_topk`` with or
-    without the per-query ``state`` buffer of the one-launch design), built
-    with the loader's flags into a library of their own and loaded beside
-    the port's; returns (gather_distance, neighbor_expand, filtered_topk,
-    pna_aggregate) callables that take the launchers' arguments.  For
-    timing a redesign against the kernels it replaced in one run."""
+    ``filtered_topk.cu``, ``pna_aggregate.cu`` and ``embedding_bag.cu``
+    from ``src_dir`` (the same C entry points; ``repro_embedding_bag``
+    with the table's type code), built with the loader's flags into a
+    library of their own and loaded beside the port's.  Earlier entry
+    points are told apart by their sources: ``neighbor_expand`` with or
+    without the global sets' ``set_ws``, ``filtered_topk`` with or without
+    the per-query ``state`` buffer of the one-launch design and the
+    ``q_type`` / ``x_type`` codes.  Returns (gather_distance, neighbor_expand,
+    filtered_topk, pna_aggregate, embedding_bag) callables that take the
+    launchers' arguments.  For timing a redesign against the kernels it
+    replaced in one run."""
     import ctypes
     import torch
     from repro_torch.kernels import loader
@@ -761,7 +776,7 @@ def baseline_kernels(src_dir: str) -> tuple:
     out.mkdir(parents=True, exist_ok=True)
     nvcc = loader._nvcc()
     names = ("gather_distance", "neighbor_expand", "filtered_topk",
-             "pna_aggregate")
+             "pna_aggregate", "embedding_bag")
     objs = [str(out / f"{nm}.o") for nm in names]
     loader._run_all([[nvcc, *loader.NVCC_FLAGS, "-c",
                       os.path.join(src_dir, f"{nm}.cu"), "-o", o]
@@ -772,18 +787,28 @@ def baseline_kernels(src_dir: str) -> tuple:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.repro_gather_distance.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.repro_gather_distance.restype = i
-    lib.repro_neighbor_expand.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                          i, i, p]
+
+    def source(name):
+        with open(os.path.join(src_dir, f"{name}.cu")) as f:
+            return f.read()
+    set_ws = "void* set_ws" in source("neighbor_expand")
+    lib.repro_neighbor_expand.argtypes = ([p] * (7 if set_ws else 6)
+                                          + [i] * 7 + [p])
     lib.repro_neighbor_expand.restype = i
-    with open(os.path.join(src_dir, "filtered_topk.cu")) as f:
-        with_state = "void* state" in f.read()
+    if set_ws:
+        lib.repro_neighbor_expand_set_words.argtypes = [i, i]
+        lib.repro_neighbor_expand_set_words.restype = ctypes.c_longlong
+    topk_src = source("filtered_topk")
+    with_state, typed = "void* state" in topk_src, "int q_type" in topk_src
     lib.repro_filtered_topk.argtypes = ([p] * (7 if with_state else 6)
-                                        + [i] * 5 + [p])
+                                        + [i] * (7 if typed else 5) + [p])
     lib.repro_filtered_topk.restype = i
     lib.repro_filtered_topk_workspace.argtypes = [i, i, i]
     lib.repro_filtered_topk_workspace.restype = ctypes.c_longlong
     lib.repro_pna_aggregate.argtypes = [p, p, p, i, i, i, p]
     lib.repro_pna_aggregate.restype = i
+    lib.repro_embedding_bag.argtypes = [p, p, p] + [i] * 6 + [p]
+    lib.repro_embedding_bag.restype = i
     strategies = {"filter": 0, "compress": 1, "two_hop": 2}
 
     def gather(ids, q, x, metric):
@@ -799,11 +824,16 @@ def baseline_kernels(src_dir: str) -> tuple:
         out = torch.empty((row.shape[0], m), dtype=torch.int32,
                           device=row.device)
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        sets = []                        # the global sets, when they are used
+        if set_ws:
+            words = lib.repro_neighbor_expand_set_words(row.shape[1], m)
+            sets = [torch.empty(row.shape[0] * words, dtype=torch.int64,
+                                device=row.device) if words else None]
         loader.check(lib.repro_neighbor_expand(
             row.data_ptr(), tbl.data_ptr(), pos.data_ptr(), ptr(pm),
-            ptr(vis), out.data_ptr(), row.shape[0], row.shape[1],
-            pos.shape[0], tbl.shape[0], m, m_beta, strategies[strategy],
-            torch.cuda.current_stream().cuda_stream),
+            ptr(vis), out.data_ptr(), *map(ptr, sets), row.shape[0],
+            row.shape[1], pos.shape[0], tbl.shape[0], m, m_beta,
+            strategies[strategy], torch.cuda.current_stream().cuda_stream),
             "baseline neighbor_expand")
         return out
 
@@ -821,8 +851,9 @@ def baseline_kernels(src_dir: str) -> tuple:
         ptrs = [q.data_ptr(), x.data_ptr(), mask.data_ptr(), ids.data_ptr(),
                 dists.data_ptr()] + ([state.data_ptr()] if with_state
                                      else []) + [ws.data_ptr()]
+        codes = [loader.float_code(q), loader.float_code(x)] if typed else []
         loader.check(lib.repro_filtered_topk(
-            *ptrs, b, n, x.shape[1], k, int(metric == "ip"),
+            *ptrs, b, n, x.shape[1], k, int(metric == "ip"), *codes,
             torch.cuda.current_stream().cuda_stream),
             "baseline filtered_topk")
         return ids, dists
@@ -837,7 +868,26 @@ def baseline_kernels(src_dir: str) -> tuple:
             "baseline pna_aggregate")
         return out
 
-    return gather, expand, topk, pna
+    def bag(ids, table, mode):
+        (b, l), (v, d) = ids.shape, table.shape
+        out = torch.empty((b, d), dtype=table.dtype, device=table.device)
+        loader.check(lib.repro_embedding_bag(
+            ids.data_ptr(), table.data_ptr(), out.data_ptr(), b, l, v, d,
+            int(mode == "mean"), loader.float_code(table),
+            torch.cuda.current_stream().cuda_stream),
+            "baseline embedding_bag")
+        return out
+
+    return gather, expand, topk, pna, bag
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes, dtypes and bits (-0.0 and NaN payloads included)."""
+    import torch
+    ints = {4: torch.int32, 2: torch.int16}
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(ints[a.element_size()]),
+                            b.view(ints[b.element_size()])))
 
 
 def time_in_turns(new, old, flush) -> dict:
@@ -1810,6 +1860,8 @@ def bag_inputs(b, l, v, d, kind="random", seed=0):
         ids[0, :] = v + 2
     elif kind == "dup":                   # repeated ids inside a bag
         ids = rng.integers(0, 3, size=(b, l))
+    elif kind == "empty_bag":             # one bag of all -1 among others
+        ids[b // 2, :] = -1
     elif kind != "random":
         raise ValueError(kind)
     table = rng.normal(size=(v, d)).astype(np.float32)
@@ -1891,9 +1943,10 @@ def bag_library(ids, table, mode: str) -> tuple:
             "of the valid ids, mode='mean'): 1 call")
 
 
-def measure_embedding_bag(ids, table, mode: str, flush) -> dict:
-    """Kernel vs plain version on the card, then the kernel, the plain
-    version and the library yardstick (one ``F.embedding_bag`` call,
+def measure_embedding_bag(ids, table, mode: str, flush, base) -> dict:
+    """Kernel (and the baseline kernel, if given: its bits) vs plain
+    version on the card, then the kernel (in turns with the baseline), the
+    plain version and the library yardstick (one ``F.embedding_bag`` call,
     held to the plain version too) timed with a cold L2."""
     import torch
     from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
@@ -1901,9 +1954,14 @@ def measure_embedding_bag(ids, table, mode: str, flush) -> dict:
     b, l = ids.shape
     v, d = table.shape
     want = embedding_bag_ref(ids, table, mode)
-    err = assert_bag_match(embedding_bag_cuda(ids, table, mode), want, ids,
-                           table, mode, f"embedding_bag ({b}, {l}) {mode} "
-                           f"{table.dtype}")
+    got = embedding_bag_cuda(ids, table, mode)
+    err = assert_bag_match(got, want, ids, table, mode,
+                           f"embedding_bag ({b}, {l}) {mode} {table.dtype}")
+    same = {}
+    if base is not None:
+        same = dict(bit_identical_to_baseline=same_bits(
+            got, base[4](ids, table, mode)))
+    del got
     bound_ms, bound_by = embedding_bag_bound(ids, table, mode)
     rec = dict(
         shape=f"ids({b},{l}) table({v},{d}) {mode} "
@@ -1911,8 +1969,10 @@ def measure_embedding_bag(ids, table, mode: str, flush) -> dict:
               + ("" if table.dtype == torch.float32 else
                  f" dtype={str(table.dtype).split('.')[-1]}"),
         max_abs_err=err,
-        ms=time_ms(lambda: embedding_bag_cuda(ids, table, mode), ITERS,
-                   flush),
+        **time_in_turns(lambda: embedding_bag_cuda(ids, table, mode),
+                        None if base is None else
+                        lambda: base[4](ids, table, mode), flush),
+        **same,
         plain_ms=time_ms(lambda: embedding_bag_ref(ids, table, mode),
                          ITERS // 5, flush),
         bound_ms=bound_ms, bound_by=bound_by)
@@ -1927,17 +1987,18 @@ def measure_embedding_bag(ids, table, mode: str, flush) -> dict:
     return rec
 
 
-def bag_16bit(dev, flush, table, inputs) -> list:
+def bag_16bit(dev, flush, table, inputs, base) -> list:
     """embedding_bag on bf16 and fp16 tables: BAG_EDGE_CASES on 16-bit
-    copies of their tables, then a copy of ``table`` at ``inputs``, each
-    mode, held to the plain version by ``assert_bag_match``; the latter
-    measured by ``measure_embedding_bag`` beside one ``F.embedding_bag``
-    call on the 16-bit table.  Returns their records."""
+    copies of their tables (with a baseline, its bits beside them), then a
+    copy of ``table`` at ``inputs``, each mode, held to the plain version
+    by ``assert_bag_match``; the latter measured by
+    ``measure_embedding_bag`` beside one ``F.embedding_bag`` call on the
+    16-bit table.  Returns their records."""
     import torch
     from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
                                                    embedding_bag_ref)
     from repro_torch.kernels.embedding_bag.ref import MODES
-    recs, worst = [], 0.0
+    recs, worst, differ = [], 0.0, []
     for name in HALF_DTYPES.values():
         dt = getattr(torch, name)
         for ci, case in enumerate(BAG_EDGE_CASES):
@@ -1945,23 +2006,29 @@ def bag_16bit(dev, flush, table, inputs) -> list:
                            for a in bag_inputs(**case, seed=ci))
             tab = tab.to(dt)
             for mode in MODES:
+                got = embedding_bag_cuda(ids, tab, mode)
                 worst = max(worst, assert_bag_match(
-                    embedding_bag_cuda(ids, tab, mode),
-                    embedding_bag_ref(ids, tab, mode), ids, tab, mode,
+                    got, embedding_bag_ref(ids, tab, mode), ids, tab, mode,
                     f"embedding_bag {case} {mode} {name}"))
+                if base is not None and not same_bits(
+                        got, base[4](ids, tab, mode)):
+                    differ.append((ci, mode, name))
         half = table.to(dt)
-        recs += [measure_embedding_bag(ids, half, mode, flush)
+        recs += [measure_embedding_bag(ids, half, mode, flush, base)
                  for ids in inputs for mode in MODES]
         del half
     log("kernels", kernel="embedding_bag", dtypes=list(HALF_DTYPES.values()),
         edge_cases_16bit=len(BAG_EDGE_CASES) * len(MODES) * 2,
-        max_abs_err_16bit=worst)
+        max_abs_err_16bit=worst,
+        **({} if base is None else
+           dict(edge_cases_16bit_not_bit_identical_to_baseline=differ)))
     return recs
 
 
-def bag_phases(dev, flush, table) -> dict:
+def bag_phases(dev, flush, table, base) -> dict:
     """The embedding_bag op over ``table`` (the two-tower FULL user
-    table): the kernel's checks and times, the counted forward and
+    table): the kernel's checks and times (in turns with the baseline
+    kernel, if given, and its bits beside them), the counted forward and
     gradient at the recsys shapes, and the CPU parity of the largest
     shape; returns embedding_bag's record."""
     import torch
@@ -1970,15 +2037,18 @@ def bag_phases(dev, flush, table) -> dict:
                                                    embedding_bag_ref)
     from repro_torch.kernels.embedding_bag.ref import MODES
 
-    worst = 0.0
+    worst, differ = 0.0, []
     for ci, case in enumerate(BAG_EDGE_CASES):
         ids, tab, _ = (torch.from_numpy(a).to(dev)
                        for a in bag_inputs(**case, seed=ci))
         for mode in MODES:
+            got = embedding_bag_cuda(ids, tab, mode)
             worst = max(worst, assert_bag_close(
-                embedding_bag_cuda(ids, tab, mode),
-                embedding_bag_ref(ids, tab, mode),
+                got, embedding_bag_ref(ids, tab, mode),
                 f"embedding_bag {case} {mode}"))
+            if base is not None and not same_bits(got,
+                                                  base[4](ids, tab, mode)):
+                differ.append((ci, mode))
     for bad in ((ids.long(), tab), (ids, tab.double())):
         try:
             embedding_bag_cuda(*bad)
@@ -1989,7 +2059,9 @@ def bag_phases(dev, flush, table) -> dict:
                                  f"{bad[0].dtype} ids, {bad[1].dtype} table")
     log("kernels", kernel="embedding_bag",
         edge_cases=len(BAG_EDGE_CASES) * len(MODES), max_abs_err=worst,
-        other_dtypes_raise=True)
+        other_dtypes_raise=True,
+        **({} if base is None else
+           dict(edge_cases_not_bit_identical_to_baseline=differ)))
 
     v, d = table.shape
     rng = np.random.default_rng(5)
@@ -1998,9 +2070,9 @@ def bag_phases(dev, flush, table) -> dict:
         ids = rng.integers(0, v, size=(b, l))
         ids[rng.random((b, l)) < BAG_PAD] = -1
         inputs.append(torch.as_tensor(ids.astype(np.int32), device=dev))
-    recs = [measure_embedding_bag(ids, table, mode, flush)
+    recs = [measure_embedding_bag(ids, table, mode, flush, base)
             for ids in inputs for mode in MODES]
-    recs += bag_16bit(dev, flush, table, inputs)
+    recs += bag_16bit(dev, flush, table, inputs, base)
 
     # the main path: the op, forward and gradient, counters zeroed just
     # before and read just after; the largest shape against a CPU copy
@@ -2929,7 +3001,7 @@ MESH_SEED = 0
 MESH_CHECK = {"serve_1m": 16, "serve_25m": 8}  # queries held to fp64
 MESH_TIMED = 1              # timed calls a variant, after a warm-up (was 3)
 MESH_EXACT_ROWS = 1 << 18   # rows per block of the fp64 recompute
-MESH_ENGINE_QUERIES = 256   # closed-loop queries through each engine path
+MESH_ENGINE_QUERIES = ENGINE_CLOSED   # queries through each engine path
 MESH_PARITY = 16            # of them, SPMD on the card vs a CPU copy
 MESH_CHUNK = 8192           # the reference's scan block (its step default)
 MESH_WIDE_CHUNK = 1 << 16   # a wider block, timed beside it (same answer)
@@ -3959,7 +4031,7 @@ def train_phases(dev, model, reduced: bool = False) -> dict:
 
 SPARSE_SEED = 9
 SPARSE_STEPS = 20      # counted full_graph_sm and minibatch_lg steps
-OGB_STEPS = 3          # counted ogb_products steps, after one warm-up (was 5)
+OGB_STEPS = 2          # counted ogb_products steps, after one warm-up (was 5)
 # The sparse cells' step-1 parity.  Their fp32 gradients may also differ
 # from the CPU copy's where a ReLU input lies within fp32 rounding of 0
 # and lands on the other side: on the sampled Reddit block one such
@@ -5904,8 +5976,9 @@ def main(argv=None) -> int:
                          "where the device time goes")
     ap.add_argument("--baseline", metavar="DIR",
                     help="a directory holding an earlier gather_distance.cu, "
-                         "neighbor_expand.cu, filtered_topk.cu and "
-                         "pna_aggregate.cu: build them into a library of "
+                         "neighbor_expand.cu, filtered_topk.cu, "
+                         "pna_aggregate.cu and embedding_bag.cu: build them "
+                         "into a library of "
                          "their own and time them in turns with the port's "
                          "at the timed and path-captured shapes")
     args = ap.parse_args(argv)
@@ -6181,7 +6254,7 @@ def main(argv=None) -> int:
     rec["other_shapes"] = [topk_lcps] + topk_more
     records.append(rec)
     # at (512, 4) the launch floor, not the bytes bound, is the least time
-    records.append(dict(bag_phases(dev, flush, model.user_emb),
+    records.append(dict(bag_phases(dev, flush, model.user_emb, base),
                         launch_floor_ms=floor_ms))
     # ---- train: the two-tower train step on the same FULL model, PNA ----
     train = train_phases(dev, model)

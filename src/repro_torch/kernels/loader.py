@@ -121,9 +121,9 @@ def library() -> ctypes.CDLL:
             lib.repro_filtered_topk_workspace.restype = ctypes.c_longlong
             lib.repro_pna_aggregate.argtypes = [p, p, p, i, i, i, p]
             lib.repro_pna_aggregate.restype = i
-            lib.repro_embedding_bag.argtypes = [p, p, p, i, i, i, i, i, i,
-                                                p]
-            lib.repro_embedding_bag.restype = i
+            lib.repro_embedding_bag_shaped.argtypes = ([p] * 3 + [i] * 10
+                                                       + [p])
+            lib.repro_embedding_bag_shaped.restype = i
             _LIB = lib
         return _LIB
 

@@ -31,6 +31,7 @@ from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                embedding_bag_cuda,
                                                embedding_bag_ref,
                                                embedding_bag_segment_ref)
+from repro_torch.kernels.embedding_bag.kernel import launch_shape
 from torch_parity import (cuda_device,  # noqa: F401  (fixture)
                           load_chip_smoke)
 
@@ -51,6 +52,8 @@ def _inputs(b, l, v, d, kind="random", seed=0):
         ids[0, :] = v + 2
     elif kind == "dup":                   # repeated ids inside a bag
         ids = rng.integers(0, 3, size=(b, l))
+    elif kind == "empty_bag":             # one bag of all -1 among others
+        ids[b // 2, :] = -1
     elif kind != "random":
         raise ValueError(kind)
     table = rng.normal(size=(v, d)).astype(np.float32)
@@ -67,6 +70,18 @@ CASES = {
     "clip_6x5v9d8": dict(b=6, l=5, v=9, d=8, kind="clip"),
     "dup_4x6v20d8": dict(b=4, l=6, v=20, d=8, kind="dup"),
     "d13_7x5v30d13": dict(b=7, l=5, v=30, d=13),       # the scalar path
+    # across the CUDA kernel's structure: more ids than a warp's 32 lanes
+    # (100: a DIEN-length history), several column slices (one ragged),
+    # one bag and a number of bags that fills no block, an empty bag among
+    # full ones past one chunk of ids, ids >= V past one chunk
+    "l33_4x33v50d8": dict(b=4, l=33, v=50, d=8),
+    "l100_3x100v200d16": dict(b=3, l=100, v=200, d=16),
+    "d1024_2x3v20d1024": dict(b=2, l=3, v=20, d=1024),
+    "d1028_2x3v20d1028": dict(b=2, l=3, v=20, d=1028),
+    "b1_1x4v30d256": dict(b=1, l=4, v=30, d=256),
+    "b131_131x4v300d8": dict(b=131, l=4, v=300, d=8),
+    "empty_bag_5x40v60d8": dict(b=5, l=40, v=60, d=8, kind="empty_bag"),
+    "clip_3x33v9d8": dict(b=3, l=33, v=9, d=8, kind="clip"),
 }
 
 
@@ -173,15 +188,23 @@ def test_cpu_tensors_route_to_plain_version():
 
 
 # the same as BAG_EDGE_CASES in chip_smoke.py, which runs them on the card
-# (case i drawn with seed i): the edge cases above, then D = 256 (one
-# float4 pass), D = 260 and 600 (more than one pass, a partial one), and
-# empty bags (L = 0)
+# (case i drawn with seed i): the edge cases above, then D = 256 (two
+# column slices of one float4 each a lane), D = 260 and 600 (a ragged
+# slice), empty bags (L = 0); then L = 33 and 100 (more than one chunk of
+# 32 ids), D = 1,024 and 1,028 (slices of several passes, one ragged), one
+# bag and 131 bags, an empty bag among full ones at L = 40, ids >= V at
+# L = 33
 CARD_CASES = [
     dict(b=16, l=8, v=1000, d=32), dict(b=3, l=4, v=10, d=8, kind="padding"),
     dict(b=6, l=5, v=9, d=8, kind="clip"),
     dict(b=4, l=6, v=20, d=8, kind="dup"), dict(b=7, l=5, v=30, d=13),
     dict(b=1000, l=4, v=5000, d=256), dict(b=33, l=9, v=70, d=260),
-    dict(b=9, l=3, v=40, d=600), dict(b=5, l=0, v=10, d=8)]
+    dict(b=9, l=3, v=40, d=600), dict(b=5, l=0, v=10, d=8),
+    dict(b=64, l=33, v=500, d=256), dict(b=32, l=100, v=5000, d=256),
+    dict(b=16, l=4, v=100, d=1024), dict(b=16, l=5, v=100, d=1028),
+    dict(b=1, l=4, v=100, d=256), dict(b=131, l=4, v=1000, d=256),
+    dict(b=8, l=40, v=300, d=256, kind="empty_bag"),
+    dict(b=8, l=33, v=40, d=256, kind="clip")]
 
 
 @pytest.mark.parametrize("mode", ["sum", "mean"])
@@ -221,6 +244,32 @@ def test_cuda_kernel_16bit_matches_plain_version(cuda_device, ci, half,
     _assert_within_ulp(got.float().cpu().numpy(), want.float().cpu().numpy(),
                        ids.cpu().numpy(), t16.float().cpu().numpy(), mode,
                        ulp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+def test_launch_shape_tiles_every_bag(dtype):
+    """The kernel's launch shape: each bag's column slices tile [0, D)
+    exactly (whole multiples of 8 columns, none empty, at most 4 warps),
+    the blocks (1-8 warps each) cover every warp, and at the serve_p99
+    bags (512 of D = 256) the grid has a block for each of the 132 SMs.
+    The shape depends on the bags and D only, not on L."""
+    for b in (1, 2, 7, 31, 131, 132, 512, 1000, 65_536, 3_000_000):
+        for d in (1, 3, 4, 7, 8, 13, 31, 64, 100, 128, 255, 256, 260, 512,
+                  600, 1024, 1028, 4097):
+            w, sc, wb, blocks = launch_shape(b, d, dtype)
+            assert 1 <= w <= 4 and sc % 8 == 0 and 1 <= wb <= 8
+            cols = np.zeros(d, np.int64)
+            for part in range(w):
+                lo, hi = part * sc, min(d, (part + 1) * sc)
+                assert lo < hi, (b, d, part)
+                cols[lo:hi] += 1
+            assert (cols == 1).all(), (b, d)
+            assert (blocks - 1) * wb < b * w <= blocks * wb
+    assert launch_shape(512, 256, dtype).blocks >= 132
+    for bad in ((0, 8), (4, 0)):
+        with pytest.raises(ValueError):
+            launch_shape(*bad, dtype)
 
 
 def test_cuda_kernel_refuses_other_dtypes(cuda_device):
